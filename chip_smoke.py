@@ -1,0 +1,460 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from a checkout, on a machine with one CUDA card (an H100 is what the
+numbers in PERF.md were taken on). Phases, each of which raises on failure:
+
+1. print the card's name and power limit (nvidia-smi);
+2. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc;
+3. hold each kernel against its plain PyTorch version on the card, at the
+   main path's shapes and at ragged edges, and time kernel, plain version
+   and (where one exists) the single PyTorch call computing the same
+   function, with CUDA events (median over repeats, L2 flushed before each
+   repeat of the memory-bound kernels);
+4. run the port's trainer twice on the card and once on the CPU from the
+   same initial weights (full-width paper CNN, dropout 0, 2 rounds) and
+   compare schedules, parameters, metrics and ACO; then card and CPU once
+   more with an absolute threshold, elementwise;
+5. drive the main path: ``FedS3ATrainer(make_dataset("basic", scale=0.02),
+   FedS3AConfig(rounds=3))`` on the card with launch counters reset just
+   before, and fail if any kernel of the path never launched; then run
+   one more round under ``torch.profiler`` and print the device's busy
+   share and its heaviest kernels;
+6. print one ``{"kernels": [...]}`` line, then the result line
+   ``{"ok": true, "device": {...}}`` last.
+
+It exits non-zero, printing no result, when CUDA is unavailable or the
+port's sources are missing. It imports nothing from the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+from types import SimpleNamespace
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
+THETA = 0.95
+N_FULL = 5_213_449            # paper CNN parameter count
+CAP_FULL = 2_606_725          # min(N, ceil(2.5 * 0.2 * N))
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def check(ok, msg):
+    if not ok:
+        raise AssertionError(msg)
+
+
+def bound_ms(nbytes, nops):
+    """Least time for the work: the larger of bytes over the memory rate and
+    operations over the float32 rate, with which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(torch, fn, *, reps, flush=None):
+    """Median device time of ``fn()`` over ``reps`` repeats, each between
+    two CUDA events; ``flush()`` (outside the events) evicts the L2."""
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        if flush is not None:
+            flush()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+# -- phase 3: kernels against their plain versions -------------------------
+def check_masked_pseudo_ce(torch, ops, ref, dev, gen):
+    worst = 0.0
+    for n, c in ((100, 9), (4096, 9), (300, 40)):
+        logits = torch.randn((n, c), generator=gen, device=dev) * 3
+        g = torch.rand((n,), generator=gen, device=dev)
+        lk = logits.clone().requires_grad_(True)
+        loss_k, mask_k = ops.masked_pseudo_ce(lk, THETA)
+        (grad_k,) = torch.autograd.grad((loss_k * g).sum(), lk)
+        lp = logits.clone().requires_grad_(True)
+        loss_p, mask_p = ref.masked_pseudo_ce_ref(lp, THETA)
+        grad_p = ref.masked_pseudo_ce_grad(logits, mask_p, g)
+        torch.cuda.synchronize()
+        err = max(float((loss_k - loss_p).detach().abs().max()),
+                  float((mask_k - mask_p).abs().max()),
+                  float((grad_k - grad_p).abs().max()))
+        log(f"  masked_pseudo_ce ({n}, {c}): max |kernel - plain| "
+            f"(loss, mask, grad) = {err:.3g}")
+        check(err <= 1e-6, f"masked_pseudo_ce ({n}, {c}) off by {err}")
+        worst = max(worst, err)
+    logits = torch.randn((100, 9), generator=gen, device=dev) * 3
+    ms = time_ms(torch, lambda: ops.masked_pseudo_ce(logits, THETA),
+                 reps=200)
+    plain = time_ms(torch, lambda: ref.masked_pseudo_ce_ref(logits, THETA),
+                    reps=200)
+    n, c = logits.shape
+    b, by = bound_ms(4 * n * c + 8 * n, 4 * n * c + 6 * n)
+    return {"name": "masked_pseudo_ce", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/masked_pseudo_ce.cu",
+            "replaces": "src/repro/kernels/masked_pseudo_ce.py:33",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "shape": [n, c]}
+
+
+def check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush):
+    def delta(k, n):
+        x = torch.randn((k, n), generator=gen, device=dev) * 1e-3
+        zeros = torch.rand((k, n), generator=gen, device=dev) < 0.1
+        return x.masked_fill(zeros, 0.0)
+
+    x = delta(1, N_FULL)
+    thr = comm_mod.local_quantile_thresholds(x, 0.2)
+    cases = [("main path", x, thr, CAP_FULL)]
+    nnz_main = int(ref.csr_compact2d_ref(x, thr, CAP_FULL)[2][0])
+    cases.append(("overflow cap < nnz", x, thr, max(nnz_main // 3, 1)))
+    cases.append(("thr <= 0, exact zeros", x,
+                  torch.tensor([-1.0], device=dev), CAP_FULL))
+    xr = delta(3, 1_000_003)
+    cases.append(("ragged (3, 1000003)", xr,
+                  comm_mod.local_quantile_thresholds(xr, 0.2), 400_001))
+    for label, xx, tt, cap in cases:
+        vk, ik, nk = ops.csr_compact(xx, tt, cap)
+        vp, ip, np_ = ref.csr_compact2d_ref(xx, tt, cap)
+        torch.cuda.synchronize()
+        same = torch.equal(vk, vp) and torch.equal(ik, ip) and \
+            torch.equal(nk, np_)
+        log(f"  csr_compact {label}: shape {tuple(xx.shape)}, cap {cap}, "
+            f"nnz {nk.tolist()}, bit-exact {same}")
+        check(same, f"csr_compact {label}: kernel differs from plain")
+    ms = time_ms(torch, lambda: ops.csr_compact(x, thr, CAP_FULL), reps=30,
+                 flush=flush)
+    plain = time_ms(torch, lambda: ref.csr_compact2d_ref(x, thr, CAP_FULL),
+                    reps=10, flush=flush)
+    stored = min(nnz_main, CAP_FULL)
+    b, by = bound_ms(4 * N_FULL + 4 + 8 * stored + 4, 3 * N_FULL)
+    return {"name": "csr_compact", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/csr_compact.cu",
+            "replaces": "src/repro/kernels/csr_compact.py:75",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "shape": [1, N_FULL], "cap": CAP_FULL, "nnz": nnz_main}
+
+
+def check_staleness_agg(torch, ops, ref, dev, gen, flush):
+    entry = None
+    for k in (6, 3):
+        d = torch.randn((k, N_FULL), generator=gen, device=dev) * 1e-2
+        w = torch.rand((k,), generator=gen, device=dev)
+        w = w / w.sum()
+        out_k = ops.staleness_agg(d, w)
+        out_p = ref.staleness_agg_ref(d, w)
+        torch.cuda.synchronize()
+        err = float((out_k - out_p).abs().max())
+        close = torch.allclose(out_k, out_p, rtol=1e-6, atol=0.0)
+        log(f"  staleness_agg ({k}, {N_FULL}): max |kernel - plain| = "
+            f"{err:.3g}, allclose rtol 1e-6: {close}")
+        check(close, f"staleness_agg ({k}, N) off by {err}")
+        ms = time_ms(torch, lambda: ops.staleness_agg(d, w), reps=30,
+                     flush=flush)
+        plain = time_ms(torch, lambda: ref.staleness_agg_ref(d, w), reps=30,
+                        flush=flush)
+        lib = time_ms(torch, lambda: w @ d, reps=30, flush=flush)
+        b, by = bound_ms((k + 1) * 4 * N_FULL + 4 * k, 2 * k * N_FULL)
+        log(f"  staleness_agg ({k}, N): kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, w @ d {lib:.4f} ms, bound {b:.4f} ms")
+        if entry is None:
+            entry = {"name": "staleness_agg", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/staleness_agg.cu",
+                     "replaces": "src/repro/kernels/staleness_agg.py:28",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": b, "bound_by": by, "library_ms": lib,
+                     "shape": [k, N_FULL]}
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return entry
+
+
+# -- phase 4: the trainer on the card against itself on the CPU -----------
+def _param_diff(np, a, b):
+    """(max |a - b|, elements outside atol 1e-4 + rtol 1e-3 of b, total)."""
+    worst, outside, total = 0.0, 0, 0
+    for name in sorted(a):
+        diff = np.abs(a[name] - b[name])
+        worst = max(worst, float(diff.max()))
+        outside += int((diff > 1e-4 + 1e-3 * np.abs(b[name])).sum())
+        total += diff.size
+    return worst, outside, total
+
+
+def _tap_messages(comm):
+    """Wrap ``comm``'s per-message threshold rule so that each message's
+    thresholds and ``|delta|`` are kept on the host, in message order."""
+    rule, seen = comm._row_thresholds, []
+
+    def tapped(delta):
+        thr = rule(delta)
+        seen.append((thr.cpu(), delta.abs().cpu()))
+        return thr
+
+    comm._row_thresholds = tapped
+    return seen
+
+
+def _trainer_run(torch, port, cnn, init, dev, rounds, threshold="p0.2"):
+    data = port.make_dataset("basic", scale=0.005, seed=0)
+    t0 = time.perf_counter()
+    tr = port.FedS3ATrainer(
+        data, port.FedS3AConfig(rounds=rounds, cnn=cnn, device=dev,
+                                sparse_threshold=threshold),
+        init_params=init)
+    warm = port.params_to_numpy(tr.global_params)
+    seen = _tap_messages(tr.comm)
+    out = tr.train()
+    log(f"  {dev}, threshold {threshold}: {time.perf_counter() - t0:.2f} s, "
+        f"accuracy {out['metrics']['accuracy']:.6f}, ACO {out['aco']:.6f}")
+    return SimpleNamespace(tr=tr, warm=warm, out=out, seen=seen,
+                           params=port.params_to_numpy(tr.global_params))
+
+
+def _first_flips(torch, a, b):
+    """The first message whose kept set differs between runs ``a`` and
+    ``b``: (message, flipped elements, thresholds equal, largest relative
+    distance of a flipped |delta| from its threshold on either run, card
+    elements within that distance), or None."""
+    for m, ((ta, da), (tb, db)) in enumerate(zip(a.seen, b.seen)):
+        ka = (da >= ta[:, None]) & (da != 0)
+        kb = (db >= tb[:, None]) & (db != 0)
+        flips = ka ^ kb
+        if bool(flips.any()):
+            ra = ((da - ta[:, None]).abs() / ta[:, None])
+            rb = ((db - tb[:, None]).abs() / tb[:, None])
+            dist = float(torch.maximum(ra[flips], rb[flips]).max())
+            return (m, int(flips.sum()), bool(torch.equal(ta, tb)), dist,
+                    int((ra <= dist).sum()))
+    return None
+
+
+def trainer_gpu_vs_cpu(torch, port, rounds=2):
+    """Card twice and CPU once from the same initial weights, then card and
+    CPU once more with an absolute threshold.
+
+    Before any sparsified message (after the server warm-up) the card and
+    the CPU must agree to atol 1e-4 / rtol 1e-3. After the rounds on the
+    paper's p0.2 wire they are held to the reference's own cross-engine
+    criteria: identical schedules, metrics within 1e-4, ACO within 2e-3,
+    and every parameter within 1e-3, not elementwise. Adam's first steps
+    put a large share of the delta magnitudes within rounding of each
+    other, the sampled quantile lands in that cluster, and an element
+    whose |delta| rounds differently on the two devices is kept on one and
+    dropped on the other; the first such message is reported. The
+    elementwise atol 1e-4 / rtol 1e-3 is held by the witness: with an
+    absolute threshold two decades below the update size no cluster sits
+    at the threshold, and card and CPU must agree on every element. Two
+    runs on the card must be bit-identical."""
+    import numpy as np
+    cnn = port.CNNConfig(dropout=0.0)
+    gen = torch.Generator().manual_seed(0)
+    init = port.params_to_numpy(port.init_cnn(cnn, gen))
+    g, g2, c = (_trainer_run(torch, port, cnn, init, dev, rounds)
+                for dev in ("cuda", "cuda", "cpu"))
+    check(all(np.array_equal(g.params[k], g2.params[k]) for k in g.params)
+          and g.out["aco"] == g2.out["aco"], "two runs on the card differ")
+    worst, outside, total = _param_diff(np, g.warm, c.warm)
+    log(f"  after the warm-up: max |card - CPU| {worst:.3g}, {outside} of "
+        f"{total} outside atol 1e-4 + rtol 1e-3")
+    check(outside == 0, "card and CPU differ after the warm-up")
+    for lg, lc in zip(g.tr.logs, c.tr.logs, strict=True):
+        check((lg.participants, lg.stalenesses, lg.forced, lg.time)
+              == (lc.participants, lc.stalenesses, lc.forced, lc.time),
+              f"schedules differ at round {lg.round}")
+    worst, outside, total = _param_diff(np, g.params, c.params)
+    mdiff = max(abs(g.out["metrics"][k] - c.out["metrics"][k])
+                for k in g.out["metrics"])
+    adiff = abs(g.out["aco"] - c.out["aco"])
+    log(f"  after {rounds} rounds: max |card - CPU| {worst:.3g} ({outside} "
+        f"of {total} outside atol 1e-4 + rtol 1e-3), max |metric diff| "
+        f"{mdiff:.3g}, |ACO diff| {adiff:.3g}")
+    first = _first_flips(torch, g, c)
+    if first is not None:
+        m, n_flip, same_thr, dist, near = first
+        log(f"  first message whose kept set differs: {m} of "
+            f"{len(g.seen)}, thresholds equal on both: {same_thr}; "
+            f"{n_flip} elements flip, each within {dist:.3g} (relative) "
+            f"of the threshold, where the card has {near} elements")
+    del g2
+    check(worst <= 1e-3, f"card and CPU parameters differ by {worst}")
+    check(mdiff < 1e-4, f"metrics differ by {mdiff}")
+    check(adiff < 2e-3, f"ACO differs by {adiff}")
+    ga, ca = (_trainer_run(torch, port, cnn, init, dev, rounds,
+                           threshold=1e-6) for dev in ("cuda", "cpu"))
+    for lg, lc in zip(ga.tr.logs, ca.tr.logs, strict=True):
+        check(lg.participants == lc.participants and lg.time == lc.time,
+              f"schedules differ at round {lg.round} (absolute threshold)")
+    worst, outside, total = _param_diff(np, ga.params, ca.params)
+    log(f"  witness, absolute threshold 1e-6: max |card - CPU| {worst:.3g} "
+        f"({outside} of {total} outside atol 1e-4 + rtol 1e-3), |ACO "
+        f"diff| {abs(ga.out['aco'] - ca.out['aco']):.3g}")
+    check(outside == 0, "with an absolute threshold card and CPU "
+          "parameters differ past atol 1e-4 + rtol 1e-3")
+
+
+# -- phase 5: the main path ------------------------------------------------
+def main_path(torch, port, ops, rounds=3):
+    import numpy as np
+    data = port.make_dataset("basic", scale=0.02)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = port.FedS3ATrainer(data, port.FedS3AConfig(rounds=rounds))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = tr.train()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    n = port.cnn_param_count(tr.cnn)
+    check(n == N_FULL, f"paper CNN has {n} parameters, expected {N_FULL}")
+    params = port.params_to_numpy(tr.global_params)
+    check(all(np.isfinite(v).all() for v in params.values()),
+          "non-finite global parameters")
+    check(out["rounds"] == rounds and len(tr.logs) == rounds,
+          "wrong number of rounds")
+    m = out["metrics"]
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()),
+          f"metrics out of range: {m}")
+    check(0.0 < out["aco"] < 1.0, f"ACO out of range: {out['aco']}")
+    log(f"  {rounds} rounds, N = {n}: set-up (warm-up) {t1 - t0:.3f} s, "
+        f"{(t2 - t1) / rounds:.3f} s per round, accuracy "
+        f"{m['accuracy']:.4f}, ACO {out['aco']:.4f}")
+    log(f"  launches on the main path: {launches}")
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} never launched on the main path")
+    return tr, launches, (t2 - t1) / rounds
+
+
+def profile_round(torch, tr):
+    """One more round under torch.profiler: the device's busy share of the
+    round (kernel time over wall time, the profiler's own host overhead
+    included in the wall) and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run_round()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == cuda and e.self_device_time_total > 0),
+                  reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    if not rows:
+        log("  device time not measured: torch.profiler recorded no kernel")
+        return
+    log(f"  profiled round: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+        f"{sum(r[1] for r in rows)} kernel launches")
+    for ms, count, key in rows[:10]:
+        log(f"    {ms:8.3f} ms {count:6d}x  {key[:90]}")
+
+
+def main():
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        sys.exit("chip_smoke: src/repro_torch not found beside this script; "
+                 "run it from a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: CUDA is not available; this smoke test needs "
+                 "one GPU")
+    from repro_torch.configs.feds3a_cnn import CNNConfig
+    from repro_torch.core import sparse_comm as comm_mod
+    from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.models.cnn import cnn_param_count, init_cnn
+    from repro_torch.weights import params_to_numpy
+
+    port = SimpleNamespace(   # the entry points the phases drive
+        CNNConfig=CNNConfig, FedS3AConfig=FedS3AConfig,
+        FedS3ATrainer=FedS3ATrainer, make_dataset=make_dataset,
+        cnn_param_count=cnn_param_count, init_cnn=init_cnn,
+        params_to_numpy=params_to_numpy)
+
+    t_start = time.perf_counter()
+    log("phase 1: card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    log("phase 2: build")
+    t0 = time.perf_counter()
+    out_dir = build.build()
+    log(f"  built in {time.perf_counter() - t0:.1f} s into "
+        f"{out_dir.relative_to(ROOT)}")
+    for name, text in build.build_log.items():
+        for line in text.strip().splitlines():
+            log(f"  [{name}] {line}")
+
+    log("phase 3: kernels against their plain versions")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    scratch = torch.empty(96 * 2**20 // 4, device=dev)   # > 50 MB of L2
+
+    def flush():
+        scratch.zero_()
+
+    kernels = [check_masked_pseudo_ce(torch, ops, ref, dev, gen),
+               check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush),
+               check_staleness_agg(torch, ops, ref, dev, gen, flush)]
+    del scratch
+    for k in kernels:
+        log(f"  {k['name']} {k['shape']}: kernel {k['ms']:.4f} ms, plain "
+            f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound "
+            f"{k['bound_ms']:.6f} ms ({k['bound_by']})")
+
+    log("phase 4: trainer on the card vs on the CPU (full width, dropout 0)")
+    trainer_gpu_vs_cpu(torch, port)
+
+    log("phase 5: main path (full-width paper CNN, scale 0.02, 3 rounds)")
+    tr, launches, s_per_round = main_path(torch, port, ops)
+    log("phase 5b: one more round of the same trainer, profiled")
+    profile_round(torch, tr)
+
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        k["kernel_ms"] = k["ms"]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels, "seconds_per_round": s_per_round,
+                      "gpu": smi}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,7 @@
+from repro_torch.data.synthetic_cicids import (  # noqa: F401
+    BALANCED_SCENARIO,
+    BASIC_SCENARIO,
+    CLASS_NAMES,
+    make_dataset,
+    shannon_entropy,
+)

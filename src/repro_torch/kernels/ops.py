@@ -1,0 +1,145 @@
+"""Wrappers around the port's CUDA kernels. Port of
+``repro/kernels/ops.py:39-61, 87-118``.
+
+Each wrapper checks its inputs, then picks by the tensor's device: a CPU
+tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
+kernel (built on first use by ``build.py``) on the current stream, or
+raises. There is no fallback from the card to the plain version.
+``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
+count), so a run can show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import ref
+
+LAUNCHES = {"masked_pseudo_ce": 0, "csr_compact": 0, "staleness_agg": 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(name, t, ndim, dtype=torch.float32):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _same_device(*ts):
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError("inputs lie on different devices: "
+                         + ", ".join(str(t.device) for t in ts))
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def _launch(fn_name, *args):
+    err = build.kernel(fn_name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed to launch: cudaError_t {err}")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _masked_pseudo_ce_fwd(logits, threshold):
+    _check("logits", logits, 2)
+    if not _same_device(logits):
+        return ref.masked_pseudo_ce_ref(logits, threshold)
+    n, c = logits.shape
+    loss = torch.empty(n, dtype=torch.float32, device=logits.device)
+    mask = torch.empty(n, dtype=torch.float32, device=logits.device)
+    if n:
+        _launch("masked_pseudo_ce_launch", logits.data_ptr(),
+                loss.data_ptr(), mask.data_ptr(), n, c,
+                ref.log_threshold(threshold), _stream(logits))
+        LAUNCHES["masked_pseudo_ce"] += 1
+    return loss, mask
+
+
+class _MaskedPseudoCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, threshold):
+        loss, mask = _masked_pseudo_ce_fwd(logits, threshold)
+        ctx.save_for_backward(logits, mask)
+        ctx.mark_non_differentiable(mask)
+        return loss, mask
+
+    @staticmethod
+    def backward(ctx, g_loss, _g_mask):
+        logits, mask = ctx.saved_tensors
+        return ref.masked_pseudo_ce_grad(logits, mask, g_loss), None
+
+
+def masked_pseudo_ce(logits, threshold):
+    """Eq. 5 (log-space mask): logits (N, C) f32 -> (loss (N,), mask (N,)).
+    Differentiable in ``logits``; the backward is
+    ``(softmax - onehot(argmax)) * mask * g`` in plain PyTorch, as the
+    reference's is plain jnp."""
+    return _MaskedPseudoCE.apply(logits.contiguous(), threshold)
+
+
+def csr_compact(x, thresholds, cap):
+    """(K, N) f32 rows x (K,) f32 thresholds -> the CSR wire payload
+    (values (K, cap) f32, indices (K, cap) int32, true nnz (K,) int32);
+    survivors ``(|x| >= thr) & (x != 0)`` packed in column order, rank >=
+    cap dropped, slots past ``min(nnz, cap)`` zero."""
+    _check("x", x, 2)
+    _check("thresholds", thresholds, 1)
+    K, N = x.shape
+    cap = int(cap)
+    if thresholds.shape[0] != K:
+        raise ValueError(f"thresholds has {thresholds.shape[0]} entries for "
+                         f"{K} rows")
+    if not 1 <= cap <= N:
+        raise ValueError(f"cap must lie in [1, N={N}], got {cap}")
+    if not _same_device(x, thresholds):
+        return ref.csr_compact2d_ref(x, thresholds, cap)
+    if K > 65535:
+        raise ValueError(f"at most 65535 rows per launch, got {K}")
+    nblk = (N + 511) // 512
+    counts = torch.empty((K, nblk), dtype=torch.int32, device=x.device)
+    stream = _stream(x)
+    _launch("csr_compact_count", x.data_ptr(), thresholds.data_ptr(),
+            counts.data_ptr(), K, N, nblk, stream)
+    incl = torch.cumsum(counts, dim=1, dtype=torch.int32)
+    offsets = incl - counts
+    vals = torch.zeros((K, cap), dtype=torch.float32, device=x.device)
+    idx = torch.zeros((K, cap), dtype=torch.int32, device=x.device)
+    _launch("csr_compact_scatter", x.data_ptr(), thresholds.data_ptr(),
+            offsets.data_ptr(), vals.data_ptr(), idx.data_ptr(), K, N, nblk,
+            cap, stream)
+    LAUNCHES["csr_compact"] += 1
+    return vals, idx, incl[:, -1].contiguous()
+
+
+def staleness_agg(deltas, weights):
+    """(K, N) f32 stacked deltas x (K,) f32 weights -> (N,) f32 weighted
+    sum, accumulated over k in order."""
+    _check("deltas", deltas, 2)
+    _check("weights", weights, 1)
+    K, N = deltas.shape
+    if weights.shape[0] != K:
+        raise ValueError(f"weights has {weights.shape[0]} entries for {K} "
+                         f"rows")
+    if not _same_device(deltas, weights):
+        return ref.staleness_agg_ref(deltas, weights)
+    out = torch.empty(N, dtype=torch.float32, device=deltas.device)
+    if N:
+        _launch("staleness_agg_launch", deltas.data_ptr(),
+                weights.data_ptr(), out.data_ptr(), K, N, _stream(deltas))
+        LAUNCHES["staleness_agg"] += 1
+    return out

@@ -1,0 +1,102 @@
+"""Plain PyTorch versions of the port's kernels (and of the CSR helpers the
+comm layer runs beside them). Port of ``repro/kernels/ref.py``.
+
+The wrappers in ``ops.py`` take these for tensors on the CPU, and
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def log_threshold(threshold):
+    """log(theta) rounded to float32, as the TPU kernel computes it."""
+    return float(torch.log(torch.tensor(threshold, dtype=torch.float32)))
+
+
+def masked_pseudo_ce_ref(logits, threshold):
+    """Paper Eq. 5 in log space, the TPU kernel's form
+    (``repro/kernels/masked_pseudo_ce.py:23-30``):
+
+        max_logp_i = m_i - (m_i + log sum_c exp(x_ic - m_i)),  m_i = max_c x_ic
+        mask_i = [max_logp_i >= log theta],  loss_i = -mask_i * max_logp_i
+
+    The reference's own jnp oracle compares ``exp(max_logp) >= theta``
+    instead; rows at the threshold can fall either way between the two.
+    logits: (N, C). Returns (loss (N,), mask (N,)) in float32.
+    """
+    x = logits.to(torch.float32)
+    m = x.max(dim=1).values
+    lse = m + torch.log(torch.exp(x - m[:, None]).sum(dim=1))
+    max_logp = m - lse
+    mask = (max_logp >= log_threshold(threshold)).to(torch.float32)
+    return -mask * max_logp, mask
+
+
+def masked_pseudo_ce_grad(logits, mask, g):
+    """Backward of Eq. 5 (``repro/kernels/ops.py:51-58``):
+    ``(softmax - onehot(argmax)) * mask * g``, ties to the first index."""
+    x = logits.to(torch.float32)
+    p = torch.softmax(x, dim=1)
+    onehot = torch.nn.functional.one_hot(
+        torch.argmax(x, dim=1), x.shape[1]).to(torch.float32)
+    return ((p - onehot) * (mask * g)[:, None]).to(logits.dtype)
+
+
+def _keep(x, thresholds):
+    thr = thresholds.to(torch.float32).reshape(-1, 1)
+    return (x.to(torch.float32).abs() >= thr) & (x != 0)
+
+
+def csr_compact2d_ref(x, thresholds, cap):
+    """Compacted CSR wire rows (§IV-F). x: (K, N); thresholds: (K,).
+
+    Keeps ``(|x| >= thr) & (x != 0)`` in ascending column order; rank >=
+    cap falls off, slots past ``min(nnz, cap)`` are zero. Returns
+    (values (K, cap) f32, indices (K, cap) int32, nnz (K,) int32) with
+    ``nnz`` the true, uncapped count.
+    """
+    K, _ = x.shape
+    keep = _keep(x, thresholds)
+    slot = torch.cumsum(keep.to(torch.int32), dim=1) - 1
+    nnz = (slot[:, -1] + 1).to(torch.int32)
+    rows, cols = torch.nonzero(keep & (slot < cap), as_tuple=True)
+    s = slot[rows, cols].long()
+    vals = torch.zeros((K, cap), dtype=torch.float32, device=x.device)
+    idx = torch.zeros((K, cap), dtype=torch.int32, device=x.device)
+    vals[rows, s] = x[rows, cols].to(torch.float32)
+    idx[rows, s] = cols.to(torch.int32)
+    return vals, idx, nnz
+
+
+def csr_capped_mask_ref(x, thresholds, cap):
+    """Dense twin of ``csr_decode_ref(*csr_compact2d_ref(...))``: survivors
+    whose in-row rank fits the capacity, everything else zero. Returns
+    (decoded (K, N) f32, stored (K,) int32)."""
+    keep = _keep(x, thresholds)
+    rank = torch.cumsum(keep.to(torch.int32), dim=1)
+    decoded = torch.where(keep & (rank <= cap), x.to(torch.float32),
+                          torch.zeros((), dtype=torch.float32,
+                                      device=x.device))
+    stored = torch.clamp(rank[:, -1], max=cap).to(torch.int32)
+    return decoded, stored
+
+
+def csr_decode_ref(values, indices, n):
+    """Scatter-add decode of CSR rows back to dense (K, n) f32. Padding
+    slots hold value 0 at index 0 and add nothing."""
+    K = values.shape[0]
+    out = torch.zeros((K, n), dtype=torch.float32, device=values.device)
+    return out.scatter_add_(1, indices.long(), values.to(torch.float32))
+
+
+def staleness_agg_ref(deltas, weights):
+    """Paper Eq. 10 inner sum: ``out[n] = sum_k w_k * d[k, n]`` in float32,
+    accumulated over k in order (the CUDA kernel's order).
+    deltas: (K, N); weights: (K,). Returns (N,)."""
+    w = weights.to(torch.float32)
+    out = torch.zeros(deltas.shape[1], dtype=torch.float32,
+                      device=deltas.device)
+    for k in range(deltas.shape[0]):
+        out = out + w[k] * deltas[k].to(torch.float32)
+    return out

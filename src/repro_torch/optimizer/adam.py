@@ -1,0 +1,40 @@
+"""Adam with the paper's L1 regularisation (§IV-F), on parameter dicts.
+
+Port of ``repro/optimizer/adam.py:16-49``, written out rather than taken
+from ``torch.optim.Adam``: the L1 sign subgradient joins the gradient,
+the bias correction is computed in float32 from an int32 step count, and
+eps is added after ``sqrt(vhat)``. Updates are functional (new tensors),
+so a base model that seeded a client is never written through.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def adam_init(params):
+    return {
+        "m": {k: torch.zeros_like(p) for k, p in params.items()},
+        "v": {k: torch.zeros_like(p) for k, p in params.items()},
+        "t": torch.zeros((), dtype=torch.int32,
+                         device=next(iter(params.values())).device),
+    }
+
+
+@torch.no_grad()
+def adam_update(grads, opt_state, params, *, lr, b1=0.9, b2=0.999, eps=1e-8,
+                l1=0.0):
+    t = opt_state["t"] + 1
+    tf = t.to(torch.float32)
+    c1 = 1 - b1 ** tf
+    c2 = 1 - b2 ** tf
+    new_p, new_m, new_v = {}, {}, {}
+    for k, p in params.items():
+        g = grads[k].to(torch.float32)
+        if l1:
+            g = g + l1 * torch.sign(p)
+        m = b1 * opt_state["m"][k] + (1 - b1) * g
+        v = b2 * opt_state["v"][k] + (1 - b2) * g * g
+        step = (m / c1) / (torch.sqrt(v / c2) + eps)
+        new_p[k] = p - lr * step
+        new_m[k], new_v[k] = m, v
+    return new_p, {"m": new_m, "v": new_v, "t": t}

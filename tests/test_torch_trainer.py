@@ -1,0 +1,110 @@
+"""The whole slice: the port's ``FedS3ATrainer`` on the CPU against the JAX
+package's sequential engine, from the reference's own initial weights, on
+a reduced CNN with dropout 0. Schedules must match exactly; global
+parameters at atol 1e-4 / rtol 1e-3; metrics within 1e-4 and ACO within
+2e-3, the reference's own cross-engine bounds
+(tests/test_engine_parity.py:125, :136)."""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs.feds3a_cnn import CNNConfig as JCNN  # noqa: E402
+from repro.core import FedS3AConfig as JConfig  # noqa: E402
+from repro.core import FedS3ATrainer as JTrainer  # noqa: E402
+from repro.data import make_dataset as j_make_dataset  # noqa: E402
+from repro.models.cnn import init_cnn as j_init_cnn  # noqa: E402
+from repro_torch.configs.feds3a_cnn import CNNConfig  # noqa: E402
+from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer  # noqa: E402
+from repro_torch.data import make_dataset  # noqa: E402
+from repro_torch.weights import params_to_numpy  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+SMALL = dict(name="t", conv_filters=(8, 8), hidden=16, dropout=0.0)
+
+
+def test_trainer_matches_reference_sequential_engine():
+    scale, rounds, seed = 0.0015, 2, 0
+    # the reference's _init_models draws its weights from the second half
+    # of split(PRNGKey(seed))
+    _, k = jax.random.split(jax.random.PRNGKey(seed))
+    init = {n: np.asarray(v) for n, v in j_init_cnn(JCNN(**SMALL), k).items()}
+    ref = JTrainer(j_make_dataset("basic", scale=scale, seed=seed),
+                   JConfig(rounds=rounds, cnn=JCNN(**SMALL), seed=seed,
+                           engine="sequential", use_kernels=False))
+    want = ref.train()
+    port = FedS3ATrainer(make_dataset("basic", scale=scale, seed=seed),
+                         FedS3AConfig(rounds=rounds, cnn=CNNConfig(**SMALL),
+                                      seed=seed, device="cpu"),
+                         init_params=init)
+    got = port.train()
+
+    assert len(port.logs) == len(ref.logs) == rounds
+    for a, b in zip(port.logs, ref.logs):
+        assert (a.round, a.participants, a.stalenesses, a.forced, a.time,
+                a.art) == (b.round, b.participants, b.stalenesses, b.forced,
+                           b.time, b.art)
+    np.testing.assert_array_equal(port.base_versions, ref.base_versions)
+    jp = {n: np.asarray(v) for n, v in ref.global_params.items()}
+    tp = params_to_numpy(port.global_params)
+    for n in jp:
+        np.testing.assert_allclose(tp[n], jp[n], atol=1e-4, rtol=1e-3,
+                                   err_msg=n)
+    for m in want["metrics"]:
+        assert abs(got["metrics"][m] - want["metrics"][m]) < 1e-4, m
+    assert abs(got["aco"] - want["aco"]) < 2e-3
+    assert got["fleet"] == want["fleet"] and got["rounds"] == want["rounds"]
+    assert got["art"] == want["art"]
+    # the port holds no per-client detach flags (churn is not ported)
+    assert port.store.bytes() == ref.store.bytes() - ref.store.detached.nbytes
+
+
+def test_port_runs_without_jax_or_the_reference_package():
+    code = textwrap.dedent("""
+        import sys
+        from repro_torch.configs.feds3a_cnn import CNNConfig
+        from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
+        from repro_torch.data import make_dataset
+        from repro_torch.kernels import build, ops, ref  # noqa: F401
+        cnn = CNNConfig(conv_filters=(4, 4), hidden=8)
+        out = FedS3ATrainer(make_dataset("basic", scale=0.0015),
+                            FedS3AConfig(rounds=1, cnn=cnn, device="cpu")
+                            ).train()
+        assert out["rounds"] == 1
+        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+               or m == "repro" or m.startswith("repro.")]
+        assert not bad, bad
+        print("isolated")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "isolated" in res.stdout
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    data = make_dataset("basic", scale=0.0015)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FedS3ATrainer(data, FedS3AConfig(cnn=CNNConfig(**SMALL)))
+
+
+@pytest.mark.parametrize("override", [
+    {"engine": "batched"}, {"wire_format": "csr_q"}, {"sparse_comm": False},
+    {"base_store": "dense"}, {"client_store": "paged"},
+    {"error_feedback": True}, {"round_deadline": 700.0}, {"chunk_size": 64},
+    {"checkpoint_dir": "ckpt"}, {"model": "qwen2-1.5b"}])
+def test_outside_the_slice_raises(override):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        FedS3ATrainer(make_dataset("basic", scale=0.0015),
+                      FedS3AConfig(cnn=CNNConfig(**SMALL), device="cpu",
+                                   **override))
