@@ -7,21 +7,27 @@ Run from a checkout, on a machine with one CUDA card (an H100 is what the
 numbers in PERF.md were taken on). Phases, each of which raises on failure:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc;
+2. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc,
+   one process per source, all started together;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged edges, and time kernel, plain version
-   and (where one exists) the single PyTorch call computing the same
-   function, with CUDA events (median over repeats, L2 flushed before each
-   repeat of the memory-bound kernels);
-4. run the port's trainer twice on the card and once on the CPU from the
-   same initial weights (full-width paper CNN, dropout 0, 2 rounds) and
-   compare schedules, parameters, metrics and ACO; then card and CPU once
-   more with an absolute threshold, elementwise;
-5. drive the main path: ``FedS3ATrainer(make_dataset("basic", scale=0.02),
-   FedS3AConfig(rounds=3))`` on the card with launch counters reset just
-   before, and fail if any kernel of the path never launched; then run
-   one more round under ``torch.profiler`` and print the device's busy
-   share and its heaviest kernels;
+   shapes the four paths of phase 5 give it and at ragged edges, and time
+   kernel, plain version and (where one exists) the single PyTorch call
+   computing the same function, with CUDA events (median over repeats,
+   L2 flushed before each repeat of the memory-bound kernels);
+4. run the port's sequential engine twice on the card and once on the CPU
+   from the same initial weights (full-width paper CNN, dropout 0,
+   2 rounds) and compare schedules, parameters, metrics and ACO; then
+   card and CPU once more with an absolute threshold, elementwise; then
+   the batched engine against the sequential one, both on the card, with
+   the default dropout, on the p0.2 wire and with the absolute threshold;
+5. drive four paths at full width, ``FedS3ATrainer(make_dataset("basic",
+   scale=0.02), FedS3AConfig(rounds=3, engine=..., wire_format=...))`` on
+   the card: sequential + csr, batched + csr (the default), batched +
+   dense_masked and sequential + dense_masked, each with the launch
+   counters reset just before it and read just after, failing if a
+   kernel of the path never launched or a kernel off the path did; then
+   run one more round of the default path under ``torch.profiler`` and
+   print the device's busy share and its heaviest kernels;
 6. print one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -84,9 +90,21 @@ def time_ms(torch, fn, *, reps, flush=None):
 
 
 # -- phase 3: kernels against their plain versions -------------------------
+def _timed(torch, kernel, plain, nbytes, nops, *, reps, plain_reps=None,
+           flush=None, library=None):
+    """Kernel, plain-version and library times (ms) and the bound."""
+    b, by = bound_ms(nbytes, nops)
+    return {"ms": time_ms(torch, kernel, reps=reps, flush=flush),
+            "plain_ms": time_ms(torch, plain, reps=plain_reps or reps,
+                                flush=flush),
+            "library_ms": None if library is None else
+            time_ms(torch, library, reps=reps, flush=flush),
+            "bound_ms": b, "bound_by": by}
+
+
 def check_masked_pseudo_ce(torch, ops, ref, dev, gen):
     worst = 0.0
-    for n, c in ((100, 9), (4096, 9), (300, 40)):
+    for n, c in ((600, 9), (100, 9), (4096, 9), (300, 40)):
         logits = torch.randn((n, c), generator=gen, device=dev) * 3
         g = torch.rand((n,), generator=gen, device=dev)
         lk = logits.clone().requires_grad_(True)
@@ -103,35 +121,40 @@ def check_masked_pseudo_ce(torch, ops, ref, dev, gen):
             f"(loss, mask, grad) = {err:.3g}")
         check(err <= 1e-6, f"masked_pseudo_ce ({n}, {c}) off by {err}")
         worst = max(worst, err)
-    logits = torch.randn((100, 9), generator=gen, device=dev) * 3
-    ms = time_ms(torch, lambda: ops.masked_pseudo_ce(logits, THETA),
-                 reps=200)
-    plain = time_ms(torch, lambda: ref.masked_pseudo_ce_ref(logits, THETA),
-                    reps=200)
-    n, c = logits.shape
-    b, by = bound_ms(4 * n * c + 8 * n, 4 * n * c + 6 * n)
+    shapes = []
+    # (600, 9): a batched step, all 6 clients' rows; (100, 9): a sequential
+    # step, one client's batch
+    for n, c in ((600, 9), (100, 9)):
+        logits = torch.randn((n, c), generator=gen, device=dev) * 3
+        shapes.append({"shape": [n, c], **_timed(
+            torch, lambda: ops.masked_pseudo_ce(logits, THETA),
+            lambda: ref.masked_pseudo_ce_ref(logits, THETA),
+            4 * n * c + 8 * n, 4 * n * c + 6 * n, reps=200)})
     return {"name": "masked_pseudo_ce", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/masked_pseudo_ce.cu",
             "replaces": "src/repro/kernels/masked_pseudo_ce.py:33",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": None,
-            "shape": [n, c]}
+            "max_abs_err": worst, **shapes[0], "other_shapes": shapes[1:]}
+
+
+def _delta(torch, gen, dev, k, n):
+    """(k, n) update-sized deltas, a tenth of them exact zeros."""
+    x = torch.randn((k, n), generator=gen, device=dev) * 1e-3
+    zeros = torch.rand((k, n), generator=gen, device=dev) < 0.1
+    return x.masked_fill(zeros, 0.0)
 
 
 def check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush):
-    def delta(k, n):
-        x = torch.randn((k, n), generator=gen, device=dev) * 1e-3
-        zeros = torch.rand((k, n), generator=gen, device=dev) < 0.1
-        return x.masked_fill(zeros, 0.0)
-
-    x = delta(1, N_FULL)
-    thr = comm_mod.local_quantile_thresholds(x, 0.2)
-    cases = [("main path", x, thr, CAP_FULL)]
+    x6 = _delta(torch, gen, dev, 6, N_FULL)
+    thr6 = comm_mod.local_quantile_thresholds(x6, 0.2)
+    x = x6[:1].clone()
+    thr = thr6[:1].clone()
+    cases = [("batched upload", x6, thr6, CAP_FULL),
+             ("sequential upload / chain advance", x, thr, CAP_FULL)]
     nnz_main = int(ref.csr_compact2d_ref(x, thr, CAP_FULL)[2][0])
     cases.append(("overflow cap < nnz", x, thr, max(nnz_main // 3, 1)))
     cases.append(("thr <= 0, exact zeros", x,
                   torch.tensor([-1.0], device=dev), CAP_FULL))
-    xr = delta(3, 1_000_003)
+    xr = _delta(torch, gen, dev, 3, 1_000_003)
     cases.append(("ragged (3, 1000003)", xr,
                   comm_mod.local_quantile_thresholds(xr, 0.2), 400_001))
     for label, xx, tt, cap in cases:
@@ -143,22 +166,25 @@ def check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush):
         log(f"  csr_compact {label}: shape {tuple(xx.shape)}, cap {cap}, "
             f"nnz {nk.tolist()}, bit-exact {same}")
         check(same, f"csr_compact {label}: kernel differs from plain")
-    ms = time_ms(torch, lambda: ops.csr_compact(x, thr, CAP_FULL), reps=30,
-                 flush=flush)
-    plain = time_ms(torch, lambda: ref.csr_compact2d_ref(x, thr, CAP_FULL),
-                    reps=10, flush=flush)
-    stored = min(nnz_main, CAP_FULL)
-    b, by = bound_ms(4 * N_FULL + 4 + 8 * stored + 4, 3 * N_FULL)
+    shapes = []
+    for xx, tt in ((x6, thr6), (x, thr)):
+        k = xx.shape[0]
+        stored = int(torch.clamp(ref.csr_compact2d_ref(xx, tt, CAP_FULL)[2],
+                                 max=CAP_FULL).sum())
+        shapes.append({"shape": [k, N_FULL], "cap": CAP_FULL,
+                       "stored": stored, **_timed(
+            torch, lambda: ops.csr_compact(xx, tt, CAP_FULL),
+            lambda: ref.csr_compact2d_ref(xx, tt, CAP_FULL),
+            4 * k * N_FULL + 4 * k + 8 * stored + 4 * k, 3 * k * N_FULL,
+            reps=30, plain_reps=10, flush=flush)})
     return {"name": "csr_compact", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/csr_compact.cu",
             "replaces": "src/repro/kernels/csr_compact.py:75",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": None,
-            "shape": [1, N_FULL], "cap": CAP_FULL, "nnz": nnz_main}
+            "max_abs_err": 0.0, **shapes[0], "other_shapes": shapes[1:]}
 
 
 def check_staleness_agg(torch, ops, ref, dev, gen, flush):
-    entry = None
+    worst, shapes = 0.0, []
     for k in (6, 3):
         d = torch.randn((k, N_FULL), generator=gen, device=dev) * 1e-2
         w = torch.rand((k,), generator=gen, device=dev)
@@ -171,23 +197,72 @@ def check_staleness_agg(torch, ops, ref, dev, gen, flush):
         log(f"  staleness_agg ({k}, {N_FULL}): max |kernel - plain| = "
             f"{err:.3g}, allclose rtol 1e-6: {close}")
         check(close, f"staleness_agg ({k}, N) off by {err}")
-        ms = time_ms(torch, lambda: ops.staleness_agg(d, w), reps=30,
-                     flush=flush)
-        plain = time_ms(torch, lambda: ref.staleness_agg_ref(d, w), reps=30,
-                        flush=flush)
-        lib = time_ms(torch, lambda: w @ d, reps=30, flush=flush)
-        b, by = bound_ms((k + 1) * 4 * N_FULL + 4 * k, 2 * k * N_FULL)
-        log(f"  staleness_agg ({k}, N): kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, w @ d {lib:.4f} ms, bound {b:.4f} ms")
-        if entry is None:
-            entry = {"name": "staleness_agg", "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/staleness_agg.cu",
-                     "replaces": "src/repro/kernels/staleness_agg.py:28",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": b, "bound_by": by, "library_ms": lib,
-                     "shape": [k, N_FULL]}
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-    return entry
+        worst = max(worst, err)
+        shapes.append({"shape": [k, N_FULL], **_timed(
+            torch, lambda: ops.staleness_agg(d, w),
+            lambda: ref.staleness_agg_ref(d, w),
+            (k + 1) * 4 * N_FULL + 4 * k, 2 * k * N_FULL, reps=30,
+            flush=flush, library=lambda: w @ d)})
+    return {"name": "staleness_agg", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/staleness_agg.cu",
+            "replaces": "src/repro/kernels/staleness_agg.py:28",
+            "max_abs_err": worst, **shapes[0], "other_shapes": shapes[1:]}
+
+
+def check_sparse_delta(torch, ops, ref, dev, gen, flush):
+    """Bit for bit (signed zeros included) at the dense_masked paths'
+    shapes, a ragged row length, thr <= 0 and exact zeros."""
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    x6 = _delta(torch, gen, dev, 6, N_FULL)
+    xr = _delta(torch, gen, dev, 3, 1_000_003)
+    xz = _delta(torch, gen, dev, 2, N_FULL)
+    xz[0, ::3] = -0.0
+    cases = [
+        ("batched upload, top 20%", x6, None),
+        ("ragged (3, 1000003), top 20%", xr, None),
+        ("thr <= 0 and exact zeros", xz, torch.tensor([0.0, -1.0],
+                                                      device=dev)),
+        ("absolute threshold", x6, torch.full((6,), 1e-3, device=dev))]
+    for label, xx, tt in cases:
+        if tt is None:
+            mk, nk, tt = ops.sparse_delta_topfrac(xx, 0.2)
+        else:
+            mk, nk = ops.sparse_delta_batch(xx, tt)
+        mp, np_ = ref.sparse_delta2d_ref(xx, tt)
+        torch.cuda.synchronize()
+        ok = same(mk, mp) and torch.equal(nk, np_)
+        log(f"  sparse_delta {label}: shape {tuple(xx.shape)}, survivors "
+            f"{nk.sum(dim=1).tolist()}, bit-exact {ok}")
+        check(ok, f"sparse_delta {label}: kernel differs from plain")
+        if label.startswith("thr <= 0"):
+            check(int(nk[0].sum()) == N_FULL, "sparse_delta thr <= 0 must "
+                  "keep every column and count no pad")
+    # the K = 1 form: a sequential upload, the chain advance
+    x1 = x6[0].clone()
+    t1 = ref.local_quantile_thresholds(x1[None], 0.2, fused="high")
+    m1, n1 = ops.sparse_delta(x1, t1)
+    p1, q1 = ref.sparse_delta_ref(x1, t1)
+    torch.cuda.synchronize()
+    ok = same(m1, p1) and torch.equal(n1, q1)
+    log(f"  sparse_delta (1, N) one message: survivors {int(n1.sum())}, "
+        f"bit-exact {ok}")
+    check(ok, "sparse_delta (1, N): kernel differs from plain")
+    shapes = []
+    for xx in (x6, x6[:1].clone()):
+        k = xx.shape[0]
+        tt = ref.local_quantile_thresholds(xx, 0.2)
+        nblk = -(-N_FULL // 512)
+        shapes.append({"shape": [k, N_FULL], **_timed(
+            torch, lambda: ops.sparse_delta_batch(xx, tt),
+            lambda: ref.sparse_delta2d_ref(xx, tt),
+            8 * k * N_FULL + 4 * k * nblk + 4 * k, 2 * k * N_FULL, reps=30,
+            flush=flush)})
+    return {"name": "sparse_delta", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sparse_delta.cu",
+            "replaces": "src/repro/kernels/sparse_delta.py:54",
+            "max_abs_err": 0.0, **shapes[0], "other_shapes": shapes[1:]}
 
 
 # -- phase 4: the trainer on the card against itself on the CPU -----------
@@ -207,8 +282,8 @@ def _tap_messages(comm):
     thresholds and ``|delta|`` are kept on the host, in message order."""
     rule, seen = comm._row_thresholds, []
 
-    def tapped(delta):
-        thr = rule(delta)
+    def tapped(delta, **kw):
+        thr = rule(delta, **kw)
         seen.append((thr.cpu(), delta.abs().cpu()))
         return thr
 
@@ -216,18 +291,20 @@ def _tap_messages(comm):
     return seen
 
 
-def _trainer_run(torch, port, cnn, init, dev, rounds, threshold="p0.2"):
+def _trainer_run(torch, port, cnn, init, dev, rounds, threshold="p0.2",
+                 engine="sequential"):
     data = port.make_dataset("basic", scale=0.005, seed=0)
     t0 = time.perf_counter()
     tr = port.FedS3ATrainer(
         data, port.FedS3AConfig(rounds=rounds, cnn=cnn, device=dev,
-                                sparse_threshold=threshold),
+                                sparse_threshold=threshold, engine=engine),
         init_params=init)
     warm = port.params_to_numpy(tr.global_params)
     seen = _tap_messages(tr.comm)
     out = tr.train()
-    log(f"  {dev}, threshold {threshold}: {time.perf_counter() - t0:.2f} s, "
-        f"accuracy {out['metrics']['accuracy']:.6f}, ACO {out['aco']:.6f}")
+    log(f"  {dev}, {engine}, threshold {threshold}: "
+        f"{time.perf_counter() - t0:.2f} s, accuracy "
+        f"{out['metrics']['accuracy']:.6f}, ACO {out['aco']:.6f}")
     return SimpleNamespace(tr=tr, warm=warm, out=out, seen=seen,
                            params=port.params_to_numpy(tr.global_params))
 
@@ -250,9 +327,43 @@ def _first_flips(torch, a, b):
     return None
 
 
+def _same_schedules(a, b, what):
+    for la, lb in zip(a.tr.logs, b.tr.logs, strict=True):
+        check((la.participants, la.stalenesses, la.forced, la.time)
+              == (lb.participants, lb.stalenesses, lb.forced, lb.time),
+              f"{what}: schedules differ at round {la.round}")
+
+
+def _cross_criteria(np, a, b, what):
+    """The reference's cross-engine criteria plus max |diff| <= 1e-3."""
+    _same_schedules(a, b, what)
+    worst, outside, total = _param_diff(np, a.params, b.params)
+    mdiff = max(abs(a.out["metrics"][k] - b.out["metrics"][k])
+                for k in a.out["metrics"])
+    adiff = abs(a.out["aco"] - b.out["aco"])
+    log(f"  {what}: max |diff| {worst:.3g} ({outside} of {total} outside "
+        f"atol 1e-4 + rtol 1e-3), max |metric diff| {mdiff:.3g}, |ACO "
+        f"diff| {adiff:.3g}")
+    check(worst <= 1e-3, f"{what}: parameters differ by {worst}")
+    check(mdiff < 1e-4, f"{what}: metrics differ by {mdiff}")
+    check(adiff < 2e-3, f"{what}: ACO differs by {adiff}")
+
+
+def _witness(np, a, b, what):
+    """Elementwise atol 1e-4 / rtol 1e-3 with the absolute threshold."""
+    _same_schedules(a, b, what)
+    worst, outside, total = _param_diff(np, a.params, b.params)
+    log(f"  {what}, absolute threshold 1e-6: max |diff| {worst:.3g} "
+        f"({outside} of {total} outside atol 1e-4 + rtol 1e-3), |ACO diff| "
+        f"{abs(a.out['aco'] - b.out['aco']):.3g}")
+    check(outside == 0, f"{what}: with an absolute threshold parameters "
+          "differ past atol 1e-4 + rtol 1e-3")
+
+
 def trainer_gpu_vs_cpu(torch, port, rounds=2):
-    """Card twice and CPU once from the same initial weights, then card and
-    CPU once more with an absolute threshold.
+    """The sequential engine on the card twice and on the CPU once from the
+    same initial weights, then card and CPU once more with an absolute
+    threshold.
 
     Before any sparsified message (after the server warm-up) the card and
     the CPU must agree to atol 1e-4 / rtol 1e-3. After the rounds on the
@@ -279,17 +390,7 @@ def trainer_gpu_vs_cpu(torch, port, rounds=2):
     log(f"  after the warm-up: max |card - CPU| {worst:.3g}, {outside} of "
         f"{total} outside atol 1e-4 + rtol 1e-3")
     check(outside == 0, "card and CPU differ after the warm-up")
-    for lg, lc in zip(g.tr.logs, c.tr.logs, strict=True):
-        check((lg.participants, lg.stalenesses, lg.forced, lg.time)
-              == (lc.participants, lc.stalenesses, lc.forced, lc.time),
-              f"schedules differ at round {lg.round}")
-    worst, outside, total = _param_diff(np, g.params, c.params)
-    mdiff = max(abs(g.out["metrics"][k] - c.out["metrics"][k])
-                for k in g.out["metrics"])
-    adiff = abs(g.out["aco"] - c.out["aco"])
-    log(f"  after {rounds} rounds: max |card - CPU| {worst:.3g} ({outside} "
-        f"of {total} outside atol 1e-4 + rtol 1e-3), max |metric diff| "
-        f"{mdiff:.3g}, |ACO diff| {adiff:.3g}")
+    _cross_criteria(np, g, c, f"card vs CPU after {rounds} rounds")
     first = _first_flips(torch, g, c)
     if first is not None:
         m, n_flip, same_thr, dist, near = first
@@ -298,36 +399,66 @@ def trainer_gpu_vs_cpu(torch, port, rounds=2):
             f"{n_flip} elements flip, each within {dist:.3g} (relative) "
             f"of the threshold, where the card has {near} elements")
     del g2
-    check(worst <= 1e-3, f"card and CPU parameters differ by {worst}")
-    check(mdiff < 1e-4, f"metrics differ by {mdiff}")
-    check(adiff < 2e-3, f"ACO differs by {adiff}")
     ga, ca = (_trainer_run(torch, port, cnn, init, dev, rounds,
                            threshold=1e-6) for dev in ("cuda", "cpu"))
-    for lg, lc in zip(ga.tr.logs, ca.tr.logs, strict=True):
-        check(lg.participants == lc.participants and lg.time == lc.time,
-              f"schedules differ at round {lg.round} (absolute threshold)")
-    worst, outside, total = _param_diff(np, ga.params, ca.params)
-    log(f"  witness, absolute threshold 1e-6: max |card - CPU| {worst:.3g} "
-        f"({outside} of {total} outside atol 1e-4 + rtol 1e-3), |ACO "
-        f"diff| {abs(ga.out['aco'] - ca.out['aco']):.3g}")
-    check(outside == 0, "with an absolute threshold card and CPU "
-          "parameters differ past atol 1e-4 + rtol 1e-3")
+    _witness(np, ga, ca, "card vs CPU")
 
 
-# -- phase 5: the main path ------------------------------------------------
-def main_path(torch, port, ops, rounds=3):
+def engines_on_card(torch, port, rounds=2):
+    """The batched engine against the sequential one, both on the card,
+    from the same initial weights with the paper's dropout 0.1: both draw
+    each participant's masks from the same per-round seeds, so they differ
+    only in the order of the products' sums. Held to the same criteria as
+    card against CPU: on the p0.2 wire the reference's cross-engine ones
+    plus max |diff| <= 1e-3, and elementwise with the absolute
+    threshold."""
+    import numpy as np
+    cnn = port.CNNConfig()
+    gen = torch.Generator().manual_seed(1)
+    init = port.params_to_numpy(port.init_cnn(cnn, gen))
+    for threshold in ("p0.2", 1e-6):
+        s, b = (_trainer_run(torch, port, cnn, init, "cuda", rounds,
+                             threshold=threshold, engine=engine)
+                for engine in ("sequential", "batched"))
+        if threshold == "p0.2":
+            _cross_criteria(np, b, s, f"batched vs sequential after "
+                            f"{rounds} rounds")
+        else:
+            _witness(np, b, s, "batched vs sequential")
+
+
+# -- phase 5: the four paths -----------------------------------------------
+# (engine, wire) -> the kernels that path must launch; every other kernel
+# must not launch on it
+PATHS = {
+    ("sequential", "csr"): ("masked_pseudo_ce", "csr_compact",
+                            "staleness_agg"),
+    ("batched", "csr"): ("masked_pseudo_ce", "csr_compact", "staleness_agg"),
+    ("batched", "dense_masked"): ("masked_pseudo_ce", "sparse_delta",
+                                  "staleness_agg"),
+    ("sequential", "dense_masked"): ("masked_pseudo_ce", "sparse_delta",
+                                     "staleness_agg"),
+}
+DEFAULT_PATH = ("batched", "csr")
+
+
+def drive_path(torch, port, ops, engine, wire, rounds=3):
     import numpy as np
     data = port.make_dataset("basic", scale=0.02)
+    cfg = port.FedS3AConfig(rounds=rounds, wire_format=wire)
+    if (engine, wire) != DEFAULT_PATH:
+        cfg.engine = engine
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tr = port.FedS3ATrainer(data, port.FedS3AConfig(rounds=rounds))
+    tr = port.FedS3ATrainer(data, cfg)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     out = tr.train()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(ops.LAUNCHES)
+    check(tr.engine == engine, f"{engine} + {wire} ran {tr.engine}")
     n = port.cnn_param_count(tr.cnn)
     check(n == N_FULL, f"paper CNN has {n} parameters, expected {N_FULL}")
     params = port.params_to_numpy(tr.global_params)
@@ -339,13 +470,19 @@ def main_path(torch, port, ops, rounds=3):
     check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()),
           f"metrics out of range: {m}")
     check(0.0 < out["aco"] < 1.0, f"ACO out of range: {out['aco']}")
-    log(f"  {rounds} rounds, N = {n}: set-up (warm-up) {t1 - t0:.3f} s, "
-        f"{(t2 - t1) / rounds:.3f} s per round, accuracy "
-        f"{m['accuracy']:.4f}, ACO {out['aco']:.4f}")
-    log(f"  launches on the main path: {launches}")
+    s_round = (t2 - t1) / rounds
+    log(f"  {engine} + {wire}: {rounds} rounds, N = {n}: set-up (warm-up) "
+        f"{t1 - t0:.3f} s, {s_round:.3f} s per round, accuracy "
+        f"{m['accuracy']:.4f}, ACO {out['aco']:.4f}; launches {launches}")
     for name, count in launches.items():
-        check(count > 0, f"kernel {name} never launched on the main path")
-    return tr, launches, (t2 - t1) / rounds
+        if name in PATHS[(engine, wire)]:
+            check(count > 0, f"kernel {name} never launched on {engine} + "
+                  f"{wire}")
+        else:
+            check(count == 0, f"kernel {name} launched {count} times off "
+                  f"its path ({engine} + {wire})")
+    return tr, launches, {"s_per_round": s_round, "setup_s": t1 - t0,
+                          "accuracy": m["accuracy"], "aco": out["aco"]}
 
 
 def profile_round(torch, tr):
@@ -368,12 +505,14 @@ def profile_round(torch, tr):
     busy_ms = sum(r[0] for r in rows)
     if not rows:
         log("  device time not measured: torch.profiler recorded no kernel")
-        return
+        return {"wall_ms": wall_ms, "busy_ms": None, "launches": None}
     log(f"  profiled round: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
         f"{sum(r[1] for r in rows)} kernel launches")
     for ms, count, key in rows[:10]:
         log(f"    {ms:8.3f} ms {count:6d}x  {key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "launches": sum(r[1] for r in rows)}
 
 
 def main():
@@ -430,27 +569,41 @@ def main():
 
     kernels = [check_masked_pseudo_ce(torch, ops, ref, dev, gen),
                check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush),
-               check_staleness_agg(torch, ops, ref, dev, gen, flush)]
+               check_staleness_agg(torch, ops, ref, dev, gen, flush),
+               check_sparse_delta(torch, ops, ref, dev, gen, flush)]
     del scratch
     for k in kernels:
-        log(f"  {k['name']} {k['shape']}: kernel {k['ms']:.4f} ms, plain "
-            f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound "
-            f"{k['bound_ms']:.6f} ms ({k['bound_by']})")
+        for sh in [k] + k["other_shapes"]:
+            log(f"  {k['name']} {sh['shape']}: kernel {sh['ms']:.4f} ms, "
+                f"plain {sh['plain_ms']:.4f} ms, library {sh['library_ms']}, "
+                f"bound {sh['bound_ms']:.6f} ms ({sh['bound_by']})")
 
-    log("phase 4: trainer on the card vs on the CPU (full width, dropout 0)")
+    log("phase 4: the sequential engine on the card vs on the CPU (full "
+        "width, dropout 0); then batched vs sequential on the card (dropout "
+        "0.1)")
     trainer_gpu_vs_cpu(torch, port)
+    engines_on_card(torch, port)
 
-    log("phase 5: main path (full-width paper CNN, scale 0.02, 3 rounds)")
-    tr, launches, s_per_round = main_path(torch, port, ops)
-    log("phase 5b: one more round of the same trainer, profiled")
-    profile_round(torch, tr)
+    log("phase 5: four paths (full-width paper CNN, scale 0.02, 3 rounds "
+        "each), each profiled for one more round (phase 5b)")
+    paths = {}
+    for engine, wire in PATHS:
+        tr, launches, res = drive_path(torch, port, ops, engine, wire)
+        res["launches"] = launches
+        res["profiled_round"] = profile_round(torch, tr)
+        paths[f"{engine}+{wire}"] = res
+        del tr
 
+    # launches: the default path's count, or for a kernel off it (the
+    # dense_masked wire's sparse_delta), the batched dense_masked path's
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["kernel_ms"] = k["ms"]
+        by_path = {p: r["launches"][k["name"]] for p, r in paths.items()}
+        k["launches"] = by_path["batched+csr"] or \
+            by_path["batched+dense_masked"]
+        k["launches_by_path"] = by_path
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "seconds_per_round": s_per_round,
-                      "gpu": smi}), flush=True)
+    print(json.dumps({"kernels": kernels, "paths": paths, "gpu": smi}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

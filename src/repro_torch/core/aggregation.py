@@ -1,18 +1,25 @@
 """FedS3A aggregation (§IV-D, Eq. 9/10). Port of
-``repro/core/aggregation.py:22-70, 295-334``.
+``repro/core/aggregation.py:22-70, 106-150, 280-334``.
 
 The group-based variant (Eq. 10) averages |D|-weighted, g(s)-decayed
 client models within each k-means group and arithmetically across
 groups; the flat variant (Eq. 9) skips grouping. Weights are float64 on
-the host; every weighted sum of models runs through ``staleness_agg``
-(the CUDA kernel for models on the card).
+the host; every weighted sum of dense models runs through
+``staleness_agg`` (the CUDA kernel for models on the card).
+
+The batched engine folds Eq. 9/10 into one weight per client
+(``combine_weights``) and blends flat (N,) vectors: ``blend_flat`` from
+the uploaded (K, N) stack, ``blend_flat_csr`` from the bases and the CSR
+payloads, whose weighted scatter adds the rows one after another so that
+two runs on the card give the same bits.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.sparse_comm import flatten_tree, unflatten_like
+from repro_torch.core.sparse_comm import (csr_columns, flatten_tree,
+                                          unflatten_like)
 from repro_torch.kernels import ops as kops
 
 
@@ -90,3 +97,50 @@ def aggregate(server_params, client_params, *, data_sizes, stalenesses,
     return {k: (f_weight * s.to(torch.float32)
                 + (1.0 - f_weight) * unsup[k].to(torch.float32)).to(s.dtype)
             for k, s in server_params.items()}
+
+
+def _blend(server_flat, unsup, f_weight):
+    """``f * server + (1 - f) * unsup`` with f and 1 - f rounded to
+    float32 first, as the reference computes them."""
+    fw = np.float32(f_weight)
+    return float(fw) * server_flat.to(torch.float32) + \
+        float(np.float32(1.0) - fw) * unsup
+
+
+def blend_flat(server_flat, client_flat, w, f_weight):
+    """FedS3A global update from the uploaded (K, N) stack
+    (``aggregation.py:106-117``, the kernel form): Eq. 9/10 through the
+    combined weights ``w`` (K,), then the f(r) blend. Returns (N,) f32."""
+    w = torch.as_tensor(np.asarray(w), dtype=torch.float32,
+                        device=client_flat.device)
+    return _blend(server_flat, kops.staleness_agg(client_flat, w), f_weight)
+
+
+def csr_weighted_scatter(values, indices, stored, w, n):
+    """``sum_k w_k * decode(payload_k)`` as an (n,) f32 vector from K CSR
+    payload rows (values, indices) (K, cap) with ``stored`` (K,) live
+    slots (``aggregation.py:120-133``), without the dense (K, n) decode.
+    Rows are added in order k = 0..K-1; within a row every column is
+    distinct (padding goes to spare columns past n, ``csr_columns``), so
+    each column takes at most one add per row and the sum is the same on
+    every run."""
+    K, cap = values.shape
+    w = w.to(torch.float32)
+    cols = csr_columns(indices, stored, n)
+    out = torch.zeros(n + cap, dtype=torch.float32, device=values.device)
+    for k in range(K):
+        out.index_add_(0, cols[k], w[k] * values[k].to(torch.float32))
+    return out[:n]
+
+
+def blend_flat_csr(server_flat, base_flat, values, indices, stored, w,
+                   f_weight):
+    """FedS3A global update from CSR upload payloads
+    (``aggregation.py:136-150``): uploaded_k = base_k + decode(payload_k),
+    so the weighted client sum is the dense base sum (``staleness_agg``)
+    plus the weighted scatter of the payloads."""
+    w = torch.as_tensor(np.asarray(w), dtype=torch.float32,
+                        device=base_flat.device)
+    unsup = kops.staleness_agg(base_flat, w) + csr_weighted_scatter(
+        values, indices, stored, w, server_flat.shape[0])
+    return _blend(server_flat, unsup, f_weight)

@@ -8,7 +8,9 @@ once. The server keeps:
 * a ring of the last ``tau + 2`` canonical flat reconstructions ``R_v``
   (slot ``v % (tau + 2)``), ``R_0`` the warmed-up model and
   ``R_{v+1} = R_v + decode(chain_{v+1})``, on the model's device;
-* one compacted CSR chain payload per retained transition ``v -> v+1``;
+* one chain record per retained transition ``v -> v+1``: the compacted
+  CSR payload and its stored count on the csr wire, the survivor count on
+  the dense_masked wire, the dense size with sparsification disabled;
 * a per-client ``base_version`` array on the host.
 
 Distribution is a chain-delta broadcast: each retained transition goes on
@@ -91,8 +93,10 @@ class VersionedBaseStore:
     def account_distribution(self, comm, targets):
         """Book this round's chain-delta broadcast onto ``comm``: the
         suffix from the stalest target's version, each transition payload
-        once however many clients listen. Then bumps the targets to the
-        new version."""
+        once however many clients listen (CSR payloads with their row_ptr,
+        dense_masked survivors without). With sparsification disabled every
+        chain payload is the whole dense model, so the broadcast is ONE
+        dense payload. Then bumps the targets to the new version."""
         targets = np.asarray(sorted(set(int(t) for t in targets)), np.int64)
         if not targets.size:
             return
@@ -100,13 +104,19 @@ class VersionedBaseStore:
         if (vers >= self.version).any():
             raise ValueError("distribution target already at (or past) "
                              "the current version")
-        stored = [self._chain[t]["stored"]
-                  for t in range(int(vers.min()) + 1, self.version + 1)]
-        total = torch.stack([s.reshape(()) for s in stored]).sum()
-        self._dist_pending.append((total, sum(comm.elem_bytes())))
-        comm.account_payload(total, self.n, len(stored),
-                             row_ptr_rows=len(stored))
-        self._dist_host += 4 * (len(stored) + 1)
+        if not comm.enabled:
+            comm.account_batch(None, self.n, 1)
+            self._dist_host += self.n * 4
+        else:
+            stored = [self._chain[t]["stored"]
+                      for t in range(int(vers.min()) + 1, self.version + 1)]
+            total = torch.stack([s.reshape(()) for s in stored]).sum()
+            self._dist_pending.append((total, sum(comm.elem_bytes())))
+            csr = comm.wire_format == "csr"
+            comm.account_payload(total, self.n, len(stored),
+                                 row_ptr_rows=len(stored) if csr else 0)
+            if csr:
+                self._dist_host += 4 * (len(stored) + 1)
         self.client_version[targets] = self.version
 
     # -- reporting ---------------------------------------------------------

@@ -1,20 +1,39 @@
 """The FedS3A trainer on PyTorch: the semi-async scheduler, pseudo-label
 client training, group-based staleness-weighted aggregation, adaptive
 learning rates and sparse-difference communication. Port of
-``repro/core/feds3a.py`` on its sequential engine (the reference's parity
-anchor, ``feds3a.py:955-1032``) with the compacted CSR wire and the
-versioned base store.
+``repro/core/feds3a.py`` with two of its round engines, selected by
+``engine=``:
+
+* ``"sequential"``: one client after another (``feds3a.py:955-1032``),
+  the reference's parity anchor;
+* ``"batched"``: the participants' models as one (K, N) flat stack, all K
+  trained together one stacked step per batch index, the uploads encoded
+  in one call and aggregated from flat vectors (``feds3a.py:1223-1356``);
+* ``None``: batched on the card; on the CPU batched for models of at most
+  300,000 parameters, sequential above (``feds3a.py:435-471``; the
+  sharded engine is not ported, so the rule never picks it).
+
+Wires: the compacted ``"csr"`` wire, the ``"dense_masked"`` wire, and the
+disabled channel (``sparse_comm=False``); the versioned base store keeps
+the reconstructions and the chain for every engine and wire.
 
 A round: the scheduler admits ``ceil(C * M)`` uploads; each participant
-trains one pseudo-label epoch from its ring base and uploads a CSR delta;
+trains one pseudo-label epoch from its ring base and uploads its delta;
 the server takes one supervised epoch; clients are grouped by k-means on
 their pseudo-label histograms; Eq. 9/10 aggregates; one chain-transition
 encode advances the versioned base store, and its broadcast is booked.
 
+Random draws: every round takes one seed per participant, in arrival
+order, then one for the server, from a host generator seeded with
+``cfg.seed``; each seeds a device generator that draws its epoch's dropout
+masks at once. Both engines consume the same seeds and masks, so they can
+be compared with dropout on.
+
 Everything runs on ``FedS3AConfig.device``, the card by default. A model
 on the card goes through the CUDA kernels (``kernels/ops.py``); a model on
-the CPU through their plain versions. Config values outside this slice
-raise ``NotImplementedError`` naming the ROADMAP queue that brings them.
+the CPU through their plain versions. Config values outside the ported
+slice raise ``NotImplementedError`` naming the ROADMAP queue that brings
+them.
 """
 from __future__ import annotations
 
@@ -34,9 +53,14 @@ from repro_torch.core.metrics import fleet_health, weighted_metrics
 from repro_torch.core.scheduler import SemiAsyncScheduler, paper_latency
 from repro_torch.core.sparse_comm import (SparseComm, flatten_tree,
                                           unflatten_like)
-from repro_torch.models.cnn import init_cnn
+from repro_torch.models.cnn import cnn_param_count, dropout_masks, init_cnn
 from repro_torch.optimizer import adam_init
 from repro_torch.weights import params_from_numpy
+
+ENGINES = ("sequential", "batched", "sharded")
+# auto engine selection on the CPU: stacked rounds win where round overhead
+# dominates, the reference's own cut (feds3a.py:458-459)
+CPU_BATCHED_MAX_PARAMS = 300_000
 
 
 @dataclass
@@ -57,13 +81,13 @@ class FedS3AConfig:
     group_based: bool = True
     sparse_comm: bool = True
     sparse_threshold: object = "p0.2"   # top-20% magnitude per message
-    wire_format: str = "csr"
+    wire_format: str = "csr"            # "csr" | "dense_masked"
     wire_capacity: object = None        # per-row payload capacity override
     base_store: str = "versioned"
     client_store: str = "resident"
     error_feedback: bool = False
     l1: float = 1e-5                    # §IV-F L1 regularisation
-    engine: object = None               # None or "sequential"
+    engine: object = None               # "sequential" | "batched" | None
     cnn: object = None                  # CNNConfig override (None: paper §V-B)
     model: object = None                # model-zoo config (not ported yet)
     chunk_size: int = 0
@@ -81,11 +105,9 @@ def _check_slice(cfg):
     """Refuse every config value this slice does not port, naming the
     ROADMAP.md queue ("Still to port") that brings it."""
     later = {
-        "engine": (cfg.engine not in (None, "sequential"),
-                   "1 (batched engine) or 4 (sharded engine)"),
-        "wire_format": (cfg.wire_format != "csr",
-                        "1 (dense_masked wire) or 2 (csr_q wire)"),
-        "sparse_comm": (not cfg.sparse_comm, "1 (dense wires)"),
+        "engine": (cfg.engine == "sharded", "4 (sharded engine)"),
+        "wire_format": (cfg.wire_format not in ("csr", "dense_masked"),
+                        "2 (csr_q wire)"),
         "error_feedback": (bool(cfg.error_feedback), "2 (EF residual store)"),
         "model": (cfg.model is not None, "3 (LM model zoo)"),
         "base_store": (cfg.base_store != "versioned",
@@ -104,6 +126,9 @@ def _check_slice(cfg):
             raise NotImplementedError(
                 f"FedS3AConfig.{name} is outside the ported slice; it comes "
                 f"with ROADMAP.md 'Still to port' queue {queue}")
+    if cfg.engine not in ENGINES + (None,):
+        raise ValueError(f"engine must be one of {ENGINES} or None, got "
+                         f"{cfg.engine!r}")
 
 
 def _resolve_device(name):
@@ -115,6 +140,17 @@ def _resolve_device(name):
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {name!r}")
     return device
+
+
+def select_engine(engine, device, n_params):
+    """``cfg.engine`` resolved: None is batched on the card, and on the
+    CPU batched up to ``CPU_BATCHED_MAX_PARAMS`` parameters, sequential
+    above (compute-bound CPU training gains nothing from stacking)."""
+    if engine is not None:
+        return engine
+    if device.type == "cuda" or n_params <= CPU_BATCHED_MAX_PARAMS:
+        return "batched"
+    return "sequential"
 
 
 @dataclass
@@ -153,19 +189,33 @@ class FedS3ATrainer:
         self.data = data
         self.M = len(data["clients"])
         self.cnn = self.cfg.cnn if self.cfg.cnn is not None else CNN_CONFIG
+        self.engine = select_engine(self.cfg.engine, self.device,
+                                    cnn_param_count(self.cnn))
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(self.cfg.seed)
+        # per-round seeds: participants in arrival order, then the server
+        self.seed_rng = np.random.default_rng((self.cfg.seed, 0x5EED))
 
         cfg = self.cfg
+        B = cfg.batch_size
         self.client_epoch = pseudo_label.make_client_epoch(
-            self.cnn, batch_size=cfg.batch_size, threshold=cfg.threshold,
-            l1=cfg.l1)
+            self.cnn, batch_size=B, threshold=cfg.threshold, l1=cfg.l1)
         self.server_epoch = pseudo_label.make_server_epoch(
-            self.cnn, batch_size=cfg.batch_size, l1=cfg.l1)
+            self.cnn, batch_size=B, l1=cfg.l1)
         self.predict = pseudo_label.predict_fn(self.cnn)
         self.histogram = pseudo_label.class_histogram(self.cnn)
+        if self.engine == "batched":
+            self.batched_epoch = pseudo_label.make_batched_client_epoch(
+                self.cnn, batch_size=B, threshold=cfg.threshold, l1=cfg.l1,
+                epochs=cfg.epochs)
+            self.histogram_batch = pseudo_label.class_histogram_batch(
+                self.cnn, batch_size=B)
+            self.server_epoch_flat = pseudo_label.make_server_epoch_flat(
+                self.cnn, batch_size=B, l1=cfg.l1)
+            self._build_padded_data()
 
         sizes = [len(c["x"]) for c in data["clients"]]
+        self.num_batches = [max((s + B - 1) // B, 1) for s in sizes]
         # the paper's latency model is on unscaled Table III sizes
         ref_total = 453004  # Table III basic total
         f = ref_total / max(sum(sizes), 1)
@@ -173,8 +223,10 @@ class FedS3ATrainer:
         self.scheduler = SemiAsyncScheduler(
             self.latencies, C=cfg.C, tau=cfg.tau, jitter=cfg.latency_jitter,
             seed=cfg.seed)
-        self.comm = SparseComm(cfg.sparse_threshold,
+        self.comm = SparseComm(cfg.sparse_threshold, enabled=cfg.sparse_comm,
+                               wire_format=cfg.wire_format,
                                capacity=cfg.wire_capacity)
+        self._csr_wire = self.comm.enabled and self.comm.wire_format == "csr"
         self.g_fn = staleness_fn(cfg.staleness_function)
         self.participation = np.zeros((0, self.M))
         self.logs: list[RoundLog] = []
@@ -183,6 +235,43 @@ class FedS3ATrainer:
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                device=self.device)
+
+    def _build_padded_data(self):
+        """Every client's data padded to the fleet's largest batch count,
+        once, as (M, nb*B, F) and (M, nb*B) validity stacks on the device
+        (``feds3a.py:473-502``, the resident store)."""
+        B = self.cfg.batch_size
+        clients = self.data["clients"]
+        nb = max(max((len(c["x"]) + B - 1) // B, 1) for c in clients)
+        xs = np.zeros((self.M, nb * B, clients[0]["x"].shape[1]), np.float32)
+        valid = np.zeros((self.M, nb * B), np.float32)
+        for i, c in enumerate(clients):
+            xs[i, :len(c["x"])] = c["x"]
+            valid[i, :len(c["x"])] = 1.0
+        self._x_pad = torch.from_numpy(xs).to(self.device)
+        self._valid_pad = torch.from_numpy(valid).to(self.device)
+
+    def _gather_data(self, ids):
+        """Participants' padded data rows, a device-side index."""
+        idx = torch.as_tensor(ids, device=self.device)
+        return self._x_pad[idx], self._valid_pad[idx]
+
+    def _draw_seeds(self, k):
+        """This round's k participant seeds, in arrival order, then the
+        server's: one host draw, no device sync."""
+        return self.seed_rng.integers(0, 2**63 - 1, size=k + 1)
+
+    def _masks(self, seed, prefix):
+        """Dropout keep-masks (*prefix, B, hidden) from one draw of a
+        device generator seeded with ``seed``; None without dropout."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        return dropout_masks(self.cnn, (*prefix, self.cfg.batch_size), gen)
+
+    def _server_masks(self, seed):
+        n = len(self.data["server"]["x"])
+        B = self.cfg.batch_size
+        return self._masks(seed, (max((n + B - 1) // B, 1),))
 
     def _init_models(self, init_params):
         cfg = self.cfg
@@ -194,16 +283,35 @@ class FedS3ATrainer:
         # Algorithm 1: the server warms up on labeled data before
         # distributing
         for _ in range(cfg.init_server_epochs):
+            seed = self.seed_rng.integers(0, 2**63 - 1)
             params, opt, _ = self.server_epoch(
                 params, opt, self.data["server"]["x"],
-                self.data["server"]["y"], cfg.lr, self.gen)
+                self.data["server"]["y"], cfg.lr, self._server_masks(seed))
         self._template = params
         self.global_params = params
+        self._global_flat = flatten_tree(params)
         self.server_opt = opt
+        if self.engine == "batched":
+            # the server's Adam state carries over from the warm-up, flat
+            self.server_opt = {"m": flatten_tree(opt["m"])[None],
+                               "v": flatten_tree(opt["v"])[None],
+                               "t": opt["t"].reshape(1)}
         # one zeroed Adam state for every client restart (never written)
         self._zero_opt = adam_init(params)
-        self.store = VersionedBaseStore(flatten_tree(params), self.M, cfg.tau)
+        self.store = VersionedBaseStore(self._global_flat, self.M, cfg.tau)
         self.global_version = 0
+
+    @property
+    def global_params(self):
+        """The global model as a tree. The batched engine keeps it flat
+        and unflattens on demand."""
+        if self._gp_tree is None:
+            self._gp_tree = unflatten_like(self._global_flat, self._template)
+        return self._gp_tree
+
+    @global_params.setter
+    def global_params(self, tree):
+        self._gp_tree = tree
 
     @property
     def base_versions(self):
@@ -211,24 +319,20 @@ class FedS3ATrainer:
         return self.store.client_version.copy()
 
     # ------------------------------------------------------------------
-    def _train_client(self, i, lr):
-        """Run client i's local epochs from its ring base; returns
-        (trained, base) parameter dicts."""
-        x = self.data["clients"][i]["x"]
-        base = unflatten_like(self.store.gather([i])[0], self._template)
-        params, opt = base, self._zero_opt
-        for _ in range(self.cfg.epochs):
-            params, opt, _ = self.client_epoch(params, opt, x, lr, self.gen)
-        return params, base
-
     def _advance_encode(self, new_flat, prev):
         """ONE chain-transition encode of the new global model against the
         previous canonical reconstruction (the reference's
-        ``_advance_encode_body``): ``(R_{r+1}, chain entry)``."""
-        (vals, idx), stored, decoded = self.comm.csr_core(new_flat[None],
-                                                          prev[None])
-        return prev + decoded[0], {"vals": vals[0], "idx": idx[0],
-                                   "stored": stored[0]}
+        ``_advance_encode_body`` and ``_chain_entry``): ``(R_{r+1}, chain
+        entry)``. Disabled: R_{r+1} is the new model itself, bit for bit."""
+        if self._csr_wire:
+            (vals, idx), stored, decoded = self.comm.csr_core(new_flat[None],
+                                                              prev[None])
+            return prev + decoded[0], {"vals": vals[0], "idx": idx[0],
+                                       "stored": stored[0]}
+        if not self.comm.enabled:
+            return new_flat, {"stored": new_flat.shape[0]}
+        masked, nnz = self.comm.batch_core(new_flat[None], prev[None])
+        return prev + masked[0], {"stored": nnz[0]}
 
     def _distribution_plan(self, part_ids, ev):
         """Who restarts from the new global model at this boundary: the
@@ -237,7 +341,7 @@ class FedS3ATrainer:
         return sorted(set(part_ids) | set(ev.forced))
 
     def _advance_versioned(self, recon, chain, ev, part_ids):
-        """Install the new reconstruction + chain payload and book the
+        """Install the new reconstruction + chain entry and book the
         chain-delta broadcast to this round's targets."""
         targets = self._distribution_plan(part_ids, ev)
         self.store.advance(recon, chain, self.global_version)
@@ -245,6 +349,8 @@ class FedS3ATrainer:
 
     # ------------------------------------------------------------------
     def run_round(self):
+        if self.engine == "batched":
+            return self._run_round_batched()
         return self._run_round_sequential()
 
     def _round_prologue(self):
@@ -274,22 +380,38 @@ class FedS3ATrainer:
         self.logs.append(log)
         return log
 
-    def _server_step(self):
-        """Server supervised epoch on the current global model (Eq. 6)."""
-        sp, self.server_opt, _ = self.server_epoch(
-            self.global_params, self.server_opt, self.data["server"]["x"],
-            self.data["server"]["y"], self.cfg.lr, self.gen)
-        return sp
+    def _groups(self, hists):
+        """k-means groups of the participants' pseudo-label histograms
+        (K, C) on the host, or None for the flat Eq. 9."""
+        K = len(hists)
+        if not (self.cfg.group_based and K > 1):
+            return None
+        return group_clients(np.asarray(hists), min(self.cfg.num_groups, K),
+                             seed=self.cfg.seed)
+
+    # -- sequential engine ---------------------------------------------
+    def _train_client(self, i, lr, seed):
+        """Run client i's local epochs from its ring base; returns
+        (trained, base) parameter dicts."""
+        x = self.data["clients"][i]["x"]
+        base = unflatten_like(self.store.gather([i])[0], self._template)
+        masks = self._masks(seed, (self.cfg.epochs, self.num_batches[i]))
+        params, opt = base, self._zero_opt
+        for e in range(self.cfg.epochs):
+            params, opt, _ = self.client_epoch(
+                params, opt, x, lr, None if masks is None else masks[e])
+        return params, base
 
     def _run_round_sequential(self):
         cfg = self.cfg
         prev_time, ev, lrs = self._round_prologue()
         r = self.global_version
+        part_ids = [run.client for run in ev.participants]
+        seeds = self._draw_seeds(len(part_ids))
 
         client_models, sizes, stalenesses, hists = [], [], [], []
-        for run in ev.participants:
-            i = run.client
-            newp, base = self._train_client(i, float(lrs[i]))
+        for j, i in enumerate(part_ids):
+            newp, base = self._train_client(i, float(lrs[i]), seeds[j])
             delta, _ = self.comm.encode(newp, base)
             uploaded = self.comm.apply(base, delta)
             client_models.append(uploaded)
@@ -299,26 +421,103 @@ class FedS3ATrainer:
             hists.append(self.histogram(uploaded, self._tensor(x))
                          .cpu().numpy())
 
-        sp = self._server_step()
-
-        groups = None
-        if cfg.group_based and len(client_models) > 1:
-            groups = group_clients(np.stack(hists),
-                                   min(cfg.num_groups, len(client_models)),
-                                   seed=cfg.seed)
+        # server supervised epoch on the current global model (Eq. 6)
+        sp, self.server_opt, _ = self.server_epoch(
+            self.global_params, self.server_opt, self.data["server"]["x"],
+            self.data["server"]["y"], cfg.lr, self._server_masks(seeds[-1]))
 
         fw = supervised_weight(r, C=cfg.C, M=self.M,
                                mode=cfg.supervised_weight_mode)
         self.global_params = agg.aggregate(
             sp, client_models, data_sizes=sizes, stalenesses=stalenesses,
-            g_fn=self.g_fn, f_weight=fw, groups=groups)
+            g_fn=self.g_fn, f_weight=fw, groups=self._groups(hists))
+        self._global_flat = flatten_tree(self.global_params)
         self.global_version += 1
 
         # distribution: one chain-transition encode + its broadcast
-        part_ids = [run.client for run in ev.participants]
-        recon, chain = self._advance_encode(flatten_tree(self.global_params),
+        recon, chain = self._advance_encode(self._global_flat,
                                             self.store.latest())
         self._advance_versioned(recon, chain, ev, part_ids)
+        return self._round_epilogue(prev_time, ev)
+
+    # -- batched engine ------------------------------------------------
+    def _stacked_masks(self, part_ids, seeds):
+        """(K, epochs, nb, B, hidden) dropout masks: participant j's own
+        draw (``_train_client``'s, from the same seed) in its first nb_j
+        batches; the padding batches, which never step, keep everything."""
+        nb = self._x_pad.shape[1] // self.cfg.batch_size
+        out = None
+        for j, i in enumerate(part_ids):
+            m = self._masks(seeds[j], (self.cfg.epochs, self.num_batches[i]))
+            if m is None:
+                return None
+            if out is None:
+                out = torch.ones((len(part_ids), self.cfg.epochs, nb)
+                                 + m.shape[2:], dtype=torch.bool,
+                                 device=self.device)
+            out[j, :, :m.shape[1]] = m
+        return out
+
+    def _upload(self, trained, base_flat, xs, vs, with_hist):
+        """Encode and book the K uploads; returns (what the aggregation
+        reads, histograms or None): the CSR payload, or the uploaded
+        (K, N) stack on the dense wires (``feds3a.py:1051-1104``)."""
+        K, n = trained.shape
+        if self._csr_wire:
+            payload, stored, decoded = self.comm.csr_core(trained, base_flat)
+            self.comm.account_batch_csr(stored, n, K)
+            uploaded = base_flat + decoded if with_hist else None
+            sent = payload + (stored,)
+        else:
+            if self.comm.enabled:
+                masked, nnz = self.comm.batch_core(trained, base_flat)
+            else:
+                masked, nnz = trained - base_flat, None
+            self.comm.account_batch(nnz, n, K)
+            uploaded = sent = base_flat + masked
+        hists = self.histogram_batch(uploaded, xs, vs).cpu().numpy() \
+            if with_hist else None
+        return sent, hists
+
+    def _run_round_batched(self):
+        """All participants per stage: one stacked epoch, one upload
+        encode, one aggregation and one chain-transition encode
+        (``feds3a.py:1223-1356``). One host transfer per round beyond the
+        scheduler's: the histograms that feed k-means."""
+        cfg = self.cfg
+        prev_time, ev, lrs = self._round_prologue()
+        r = self.global_version
+        part_ids = [run.client for run in ev.participants]
+        K = len(part_ids)
+        seeds = self._draw_seeds(K)
+
+        xs, vs = self._gather_data(part_ids)
+        base_flat = self.store.gather(part_ids)
+        trained, _ = self.batched_epoch(base_flat, xs, vs, lrs[part_ids],
+                                        self._stacked_masks(part_ids, seeds))
+        sent, hists = self._upload(trained, base_flat, xs, vs,
+                                   cfg.group_based and K > 1)
+
+        # server supervised epoch on the current global model (Eq. 6)
+        sp_flat, self.server_opt, _ = self.server_epoch_flat(
+            self._global_flat, self.server_opt, self.data["server"]["x"],
+            self.data["server"]["y"], cfg.lr, self._server_masks(seeds[-1]))
+
+        fw = supervised_weight(r, C=cfg.C, M=self.M,
+                               mode=cfg.supervised_weight_mode)
+        w = agg.combine_weights(
+            [len(self.data["clients"][i]["x"]) for i in part_ids],
+            [ev.stale[i] for i in part_ids], self.g_fn,
+            None if hists is None else self._groups(hists))
+        self.global_version += 1
+        if self._csr_wire:
+            new_flat = agg.blend_flat_csr(sp_flat, base_flat, *sent, w, fw)
+        else:
+            new_flat = agg.blend_flat(sp_flat, sent, w, fw)
+        recon, chain = self._advance_encode(new_flat, self.store.latest())
+        self._advance_versioned(recon, chain, ev, part_ids)
+        self._global_flat = new_flat
+        self._gp_tree = None
         return self._round_epilogue(prev_time, ev)
 
     # ------------------------------------------------------------------

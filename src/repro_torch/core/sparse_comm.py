@@ -1,31 +1,42 @@
-"""Sparse-difference transmission (§IV-F) on the compacted CSR wire, with
-deferred ACO accounting. Port of the main-path subset of
-``repro/core/sparse_comm.py``.
+"""Sparse-difference transmission (§IV-F) with deferred ACO accounting.
+Port of ``repro/core/sparse_comm.py`` for the ``csr`` and ``dense_masked``
+wires and the disabled channel.
 
 A message is ``delta = new - base``, thresholded per row at the
-``1 - keep_frac`` quantile of a strided 2k sample of ``|delta|``, and
-compacted by the ``csr_compact`` kernel into (values f32, indices int32)
-rows of static capacity ``cap = min(N, ceil(2.5 * keep_frac * N))``; the
-receiver's reconstruction scatters that payload back to dense. Bytes on
-the wire are the stored elements at 4 + 4 bytes plus a ``4 * (rows + 1)``
-row_ptr per batch; ACO is payload
-bytes over dense bytes. Counts stay on the device until ``aco`` /
-``payload_bytes`` / ``wire_breakdown`` read them, in one transfer.
+``1 - keep_frac`` quantile of a strided 2k sample of ``|delta|`` (or at an
+absolute magnitude). Wires (``wire_format=``):
 
-Still to port: the quantized ``csr_q`` and ``dense_masked`` wires, the
-error-feedback residual, chunked layouts and wire validation.
+* ``"csr"`` (default): the ``csr_compact`` kernel packs the survivors
+  ``(|delta| >= thr) & (delta != 0)`` into (values f32, indices int32)
+  rows of static capacity ``cap = min(N, ceil(2.5 * keep_frac * N))``;
+  the receiver scatters that payload back to dense. Bytes on the wire are
+  the stored elements at 4 + 4 bytes plus a ``4 * (rows + 1)`` row_ptr
+  per batch.
+* ``"dense_masked"``: the ``sparse_delta`` kernel keeps ``|delta| >= thr``
+  (exact zeros too when ``thr <= 0``) and counts the survivors; the masked
+  dense delta moves between the engine's stages, and each survivor books
+  4 + 4 bytes, with no row_ptr.
+* ``enabled=False``: the dense delta moves as it is and books ``4 * N``
+  bytes per message as a dense payload.
+
+ACO is payload bytes over dense bytes. Survivor counts stay on the device
+until ``aco`` / ``payload_bytes`` / ``wire_breakdown`` read them, in one
+transfer.
+
+Still to port: the quantized ``csr_q`` wire, the error-feedback residual,
+chunked layouts and wire validation.
 """
 from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import local_quantile_thresholds
 
-QUANTILE_SAMPLE = 2048
 CAP_FACTOR = 2.5          # payload capacity slack over the target keep_frac
+WIRE_FORMATS = ("csr", "dense_masked")
 
 
 def tree_sub(a, b):
@@ -53,60 +64,71 @@ def unflatten_like(flat, tree):
     return out
 
 
-def _sampled_quantile(x, q):
-    """Per-row linear-interpolation quantile q of ``x`` (K, n) >= 0.
+def flatten_stacked(tree):
+    """{name: (K, ...)} with a leading client axis -> (K, N) f32; row i is
+    ``flatten_tree`` of client i's parameters."""
+    K = next(iter(tree.values())).shape[0]
+    return torch.cat([tree[k].reshape(K, -1).to(torch.float32)
+                      for k in sorted(tree)], dim=1)
 
-    Written out rather than ``torch.quantile`` so that it rounds as the
-    reference does: the position ``q * (n - 1)`` and its weights in
-    float32, and the blend ``low * lw + high * hw`` with the first
-    product unrounded (the reference backend contracts it into a fused
-    multiply-add), here by summing in float64."""
-    s = torch.sort(x.to(torch.float32), dim=1).values
-    n = s.shape[1]
-    pos = np.float32(q) * np.float32(n - 1)
-    lo, hi = int(np.floor(pos)), int(np.ceil(pos))
-    hw = np.float32(pos - np.float32(lo))
-    lw = np.float32(1.0) - hw
-    low = s[:, lo].to(torch.float64) * float(lw)
-    high = s[:, hi] * float(hw)
-    return (low + high.to(torch.float64)).to(torch.float32)
+
+def unflatten_stacked(flat, template):
+    """(K, N) flat stack -> {name: (K, ...)} views. ``template`` is one
+    client's tree (tensors, possibly on the meta device) giving the
+    shapes."""
+    K, out, idx = flat.shape[0], {}, 0
+    for k in sorted(template):
+        n = math.prod(template[k].shape)
+        out[k] = flat[:, idx:idx + n].reshape((K,) + tuple(template[k].shape))
+        idx += n
+    return out
+
+
+def csr_columns(indices, stored, n):
+    """(K, cap) scatter columns of CSR rows with ``stored`` (K,) live
+    slots: a live slot's own column, padding slot j the spare column
+    ``n + j``. Every column of a row is then distinct, so a scatter into
+    ``n + cap`` columns writes each address once, with no collisions (and
+    no contention on one spare column), and cutting ``[:n]`` drops the
+    padding."""
+    cap = indices.shape[1]
+    slot = torch.arange(cap, device=indices.device)
+    return torch.where(slot[None] < stored[:, None], indices.long(),
+                       n + slot[None])
 
 
 def csr_decode(values, indices, stored, n):
     """The receiver's scatter of CSR rows (values, indices) (K, cap) with
-    ``stored`` (K,) live slots each back to dense (K, n) f32. Padding slots
-    all land in one spare column that is cut off, so no live column is
-    written twice and the scatter needs no atomics."""
+    ``stored`` (K,) live slots each back to dense (K, n) f32, with no
+    atomics (``csr_columns``)."""
     K, cap = values.shape
-    live = torch.arange(cap, device=values.device)[None] < stored[:, None]
-    cols = torch.where(live, indices.long(), n)
-    out = torch.zeros((K, n + 1), dtype=torch.float32, device=values.device)
-    return out.scatter_(1, cols, values)[:, :n]
-
-
-def local_quantile_thresholds(x, keep_frac, *, sample=QUANTILE_SAMPLE):
-    """(K,) per-row |.|-quantile thresholds from a strided ``sample``-point
-    subsample: row k keeps roughly its top ``keep_frac`` by magnitude."""
-    stride = max(x.shape[1] // sample, 1)
-    return _sampled_quantile(x[:, ::stride].abs(), 1.0 - keep_frac)
+    out = torch.zeros((K, n + cap), dtype=torch.float32, device=values.device)
+    return out.scatter_(1, csr_columns(indices, stored, n), values)[:, :n]
 
 
 class SparseComm:
-    """Comm channel with deferred ACO bookkeeping, CSR wire only.
+    """Comm channel with deferred ACO bookkeeping.
 
     ``threshold``: ``"p<frac>"`` keeps the top <frac> by magnitude per row
     (``"p0.2"`` is the paper's setting); a float is an absolute magnitude
-    threshold (capacity N). ``capacity`` pins the per-row payload capacity.
+    threshold (CSR capacity N). ``capacity`` pins the per-row CSR payload
+    capacity. ``enabled=False`` sends every message dense.
     """
 
-    def __init__(self, threshold="p0.2", *, capacity=None,
-                 cap_factor=CAP_FACTOR):
+    def __init__(self, threshold="p0.2", *, enabled=True, wire_format="csr",
+                 capacity=None, cap_factor=CAP_FACTOR):
+        if wire_format not in WIRE_FORMATS:
+            raise ValueError(f"wire_format must be one of {WIRE_FORMATS}, "
+                             f"got {wire_format!r}")
         self.threshold = threshold
+        self.enabled = enabled
+        self.wire_format = wire_format
         self.capacity = capacity
         self.cap_factor = cap_factor
         self._values_host = 0.0
         self._indices_host = 0.0
-        self._pending_payload = []      # (stored count on device, vb, ib)
+        self._dense_payload_host = 0.0   # disabled-channel dense payloads
+        self._pending_payload = []      # (survivor count on device, vb, ib)
         self.dense_bytes = 0
         self.row_ptr_bytes = 0
         self.messages = 0
@@ -129,10 +151,12 @@ class SparseComm:
             return n
         return max(1, min(n, int(math.ceil(self.cap_factor * frac * n))))
 
-    def _row_thresholds(self, delta):
+    def _row_thresholds(self, delta, *, fused="low"):
+        """(K,) thresholds; ``fused="high"`` rounds a quantile as the
+        reference's one-message encode does (``ref.sampled_quantile``)."""
         frac = self._quantile_frac()
         if frac is not None:
-            return local_quantile_thresholds(delta, frac)
+            return local_quantile_thresholds(delta, frac, fused=fused)
         return torch.full((delta.shape[0],), float(self.threshold),
                           dtype=torch.float32, device=delta.device)
 
@@ -150,26 +174,89 @@ class SparseComm:
         stored = torch.clamp(nnz, max=cap)
         return (vals, idx), stored, csr_decode(vals, idx, stored, n)
 
+    def batch_core(self, new_flat, base_flat):
+        """The ``dense_masked`` encode pipeline on (K, n) flat stacks (the
+        reference's ``batch_core(False)``): ``(new, base) -> (masked (K, n),
+        nnz (K,))``, one ``sparse_delta`` launch with per-row thresholds.
+        The caller books ``nnz`` (``account_batch``)."""
+        delta = (new_flat - base_flat).contiguous()
+        frac = self._quantile_frac()
+        if frac is not None:
+            masked, blocks, _ = kops.sparse_delta_topfrac(delta, frac)
+        else:
+            masked, blocks = kops.sparse_delta_batch(
+                delta, self._row_thresholds(delta))
+        return masked, blocks.sum(dim=1)
+
     def encode(self, new_params, base_params):
         """One message ``new - base`` -> (sparse delta tree, stats); booked
-        at once. ``stats["nnz"]`` is the stored count as a device scalar."""
+        at once. ``stats["nnz"]`` is the stored (csr) or surviving
+        (dense_masked) count as a device scalar, N when disabled."""
         delta = tree_sub(new_params, base_params)
         flat = flatten_tree(delta)
         n = flat.shape[0]
-        _, stored, decoded = self.csr_core(flat[None],
-                                           torch.zeros_like(flat)[None])
-        stats = {"nnz": stored[0], "total": n, "rows": 1}
-        self.account_batch_csr(stats["nnz"], n, 1)
-        return unflatten_like(decoded[0], delta), stats
+        if not self.enabled:
+            self.account_batch(None, n, 1)
+            return delta, {"nnz": n, "total": n, "rows": 1}
+        if self.wire_format == "csr":
+            _, stored, decoded = self.csr_core(flat[None],
+                                               torch.zeros_like(flat)[None])
+            stats = {"nnz": stored[0], "total": n, "rows": 1}
+            self.account_batch_csr(stats["nnz"], n, 1)
+            return unflatten_like(decoded[0], delta), stats
+        thr = self._row_thresholds(flat[None], fused="high")
+        masked, blocks = kops.sparse_delta(flat, thr)
+        stats = {"nnz": blocks.sum(), "total": n, "rows": 1}
+        self._account(stats["nnz"], n, 1)
+        return unflatten_like(masked, delta), stats
+
+    def encode_batch(self, new_flat, base_flat):
+        """K messages at once from (K, n) flat stacks -> (the receiver's
+        dense deltas (K, n), stats with the per-row (K,) count); booked at
+        once. Disabled: the dense delta, count n per row."""
+        K, n = new_flat.shape
+        if not self.enabled:
+            self.account_batch(None, n, K)
+            return new_flat - base_flat, {
+                "nnz": torch.full((K,), n, device=new_flat.device),
+                "total": n, "rows": K}
+        if self.wire_format == "csr":
+            _, stored, decoded = self.csr_core(new_flat, base_flat)
+            self.account_batch_csr(stored, n, K)
+            return decoded, {"nnz": stored, "total": n, "rows": K}
+        masked, nnz = self.batch_core(new_flat, base_flat)
+        self.account_batch(nnz, n, K)
+        return masked, {"nnz": nnz, "total": n, "rows": K}
 
     def apply(self, base_params, sparse_delta_tree):
         return tree_add(base_params, sparse_delta_tree)
 
     # -- deferred accounting -----------------------------------------------
+    def account_batch(self, nnz, params_per_message, n_messages):
+        """Book n_messages dense_masked messages whose survivor counts are
+        the device vector ``nnz`` (ignored on a disabled channel, where
+        every message is a dense payload). No host sync."""
+        if not self.enabled:
+            self._dense_payload_host += n_messages * params_per_message * 4
+            self.dense_bytes += n_messages * params_per_message * 4
+            self.messages += n_messages
+            return
+        self._account(torch.sum(nnz), params_per_message * n_messages,
+                      n_messages)
+
+    def _account(self, nnz_dev, total_params, n_messages):
+        # dense_masked: f32 value + int32 index per survivor, no row_ptr
+        self._pending_payload.append((nnz_dev, 4, 4))
+        self.dense_bytes += total_params * 4
+        self.messages += n_messages
+
     def account_batch_csr(self, stored_nnz, params_per_message, n_messages):
         """Book an n_messages-row CSR batch whose stored counts are on the
         device: one value + one index per stored element, one shared
         row_ptr. No host sync."""
+        if not self.enabled:
+            self.account_batch(stored_nnz, params_per_message, n_messages)
+            return
         vb, ib = self.elem_bytes()
         self._pending_payload.append((torch.sum(stored_nnz), vb, ib))
         self.row_ptr_bytes += 4 * (n_messages + 1)
@@ -178,9 +265,9 @@ class SparseComm:
 
     def account_payload(self, stored_total_dev, params_per_message,
                         n_messages, *, row_ptr_rows=0):
-        """Book ``n_messages`` CSR messages whose total stored element count
-        is one device scalar (the base store's broadcast); ``row_ptr_rows``
-        adds the ``4 * (rows + 1)`` row_ptr framing."""
+        """Book ``n_messages`` messages whose total stored element count is
+        one device scalar (the base store's broadcast); ``row_ptr_rows``
+        adds the ``4 * (rows + 1)`` CSR row_ptr framing."""
         vb, ib = self.elem_bytes()
         self._pending_payload.append((stored_total_dev, vb, ib))
         if row_ptr_rows:
@@ -201,7 +288,8 @@ class SparseComm:
     @property
     def payload_bytes(self) -> float:
         self._materialize()
-        return self._values_host + self._indices_host + self.row_ptr_bytes
+        return self._values_host + self._indices_host + \
+            self._dense_payload_host + self.row_ptr_bytes
 
     @property
     def aco(self) -> float:
@@ -210,12 +298,12 @@ class SparseComm:
 
     def wire_breakdown(self):
         """Cumulative bytes on the wire by component (the reference's keys;
-        the csr_q and dense components are zero on this wire)."""
+        the csr_q scale component is zero on these wires)."""
         self._materialize()
         return {"values_bytes": self._values_host,
                 "indices_bytes": self._indices_host,
                 "scales_bytes": 0.0,
                 "row_ptr_bytes": float(self.row_ptr_bytes),
-                "dense_payload_bytes": 0.0,
+                "dense_payload_bytes": self._dense_payload_host,
                 "payload_bytes": self.payload_bytes,
                 "layout": {"num_chunks": 1}}

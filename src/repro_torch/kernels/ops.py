@@ -1,5 +1,5 @@
 """Wrappers around the port's CUDA kernels. Port of
-``repro/kernels/ops.py:39-61, 87-118``.
+``repro/kernels/ops.py:39-118`` (all but ``csr_quantize``).
 
 Each wrapper checks its inputs, then picks by the tensor's device: a CPU
 tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
@@ -15,7 +15,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
-LAUNCHES = {"masked_pseudo_ce": 0, "csr_compact": 0, "staleness_agg": 0}
+LAUNCHES = {"masked_pseudo_ce": 0, "csr_compact": 0, "staleness_agg": 0,
+            "sparse_delta": 0}
 
 
 def reset_launches():
@@ -124,6 +125,52 @@ def csr_compact(x, thresholds, cap):
             cap, stream)
     LAUNCHES["csr_compact"] += 1
     return vals, idx, incl[:, -1].contiguous()
+
+
+def sparse_delta_batch(x, thresholds):
+    """(K, N) f32 stacked deltas x (K,) f32 thresholds -> (masked (K, N),
+    per-512-column-block survivor counts (K, ceil(N/512)) int32) in one
+    launch. Keeps ``|x| >= thr_k``, exact zeros included when ``thr_k <=
+    0``; pad columns of the tail block never count."""
+    _check("x", x, 2)
+    _check("thresholds", thresholds, 1)
+    K, N = x.shape
+    if thresholds.shape[0] != K:
+        raise ValueError(f"thresholds has {thresholds.shape[0]} entries for "
+                         f"{K} rows")
+    if not _same_device(x, thresholds):
+        return ref.sparse_delta2d_ref(x, thresholds)
+    if K > 65535:
+        raise ValueError(f"at most 65535 rows per launch, got {K}")
+    nblk = (N + ref.BLK - 1) // ref.BLK
+    masked = torch.empty_like(x)
+    nnz = torch.empty((K, nblk), dtype=torch.int32, device=x.device)
+    if K and N:
+        _launch("sparse_delta_launch", x.data_ptr(), thresholds.data_ptr(),
+                masked.data_ptr(), nnz.data_ptr(), K, N, nblk, _stream(x))
+        LAUNCHES["sparse_delta"] += 1
+    return masked, nnz
+
+
+def sparse_delta(x, threshold):
+    """The K = 1 form: (N,) f32 delta, a scalar threshold (float or 0-d / 1-
+    element tensor) -> (masked (N,), counts (ceil(N/512),) int32)."""
+    _check("x", x, 1)
+    thr = torch.as_tensor(threshold, dtype=torch.float32,
+                          device=x.device).reshape(1)
+    masked, nnz = sparse_delta_batch(x.reshape(1, -1), thr)
+    return masked.reshape(-1), nnz.reshape(-1)
+
+
+def sparse_delta_topfrac(x, keep_frac):
+    """Top-``keep_frac``-by-magnitude form: per-row sampled-quantile
+    thresholds (``ref.local_quantile_thresholds``, plain PyTorch on the
+    device, as the reference computes them in jnp) feed the kernel.
+    Returns (masked (K, N), counts (K, ceil(N/512)), thresholds (K,))."""
+    _check("x", x, 2)
+    thr = ref.local_quantile_thresholds(x, keep_frac)
+    masked, nnz = sparse_delta_batch(x, thr)
+    return masked, nnz, thr
 
 
 def staleness_agg(deltas, weights):

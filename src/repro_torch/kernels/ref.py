@@ -6,7 +6,11 @@ The wrappers in ``ops.py`` take these for tensors on the CPU, and
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+BLK = 512                 # sparse_delta's count block (the TPU tile width)
+QUANTILE_SAMPLE = 2048
 
 
 def log_threshold(threshold):
@@ -41,6 +45,71 @@ def masked_pseudo_ce_grad(logits, mask, g):
     onehot = torch.nn.functional.one_hot(
         torch.argmax(x, dim=1), x.shape[1]).to(torch.float32)
     return ((p - onehot) * (mask * g)[:, None]).to(logits.dtype)
+
+
+def sampled_quantile(x, q, *, fused="low"):
+    """Per-row linear-interpolation quantile q of ``x`` (K, n) >= 0.
+
+    Written out rather than ``torch.quantile`` so that it rounds as the
+    reference does: the position ``q * (n - 1)`` and its weights in
+    float32, and the blend ``low * lw + high * hw`` with one product left
+    unrounded, because the reference backend contracts it into a fused
+    multiply-add; here the sum is taken in float64. Which product is
+    fused depends on the reference's form: the low one in its per-row
+    (axis-1 or vmapped) quantile, the high one in its 1-D quantile of one
+    message (``repro/core/sparse_comm.py:67-75``), so ``fused`` is "low"
+    or "high"."""
+    s = torch.sort(x.to(torch.float32), dim=1).values
+    n = s.shape[1]
+    pos = np.float32(q) * np.float32(n - 1)
+    lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+    hw = np.float32(pos - np.float32(lo))
+    lw = np.float32(1.0) - hw
+    low, high = s[:, lo] * float(lw), s[:, hi] * float(hw)
+    if fused == "low":
+        low = s[:, lo].to(torch.float64) * float(lw)
+    elif fused == "high":
+        high = s[:, hi].to(torch.float64) * float(hw)
+    else:
+        raise ValueError(f"fused must be 'low' or 'high', got {fused!r}")
+    return (low.to(torch.float64) + high.to(torch.float64)).to(torch.float32)
+
+
+def local_quantile_thresholds(x, keep_frac, *, sample=QUANTILE_SAMPLE,
+                              fused="low"):
+    """(K,) per-row |.|-quantile thresholds from a strided ``sample``-point
+    subsample: row k keeps roughly its top ``keep_frac`` by magnitude
+    (``repro/kernels/sparse_delta.py:81``; ``fused`` as in
+    ``sampled_quantile``)."""
+    stride = max(x.shape[1] // sample, 1)
+    return sampled_quantile(x[:, ::stride].abs(), 1.0 - keep_frac,
+                            fused=fused)
+
+
+def sparse_delta2d_ref(x, thresholds):
+    """Batched §IV-F sparsification (``repro/kernels/ref.py:50-67``):
+    x (K, N) stacked flat deltas, thresholds (K,). Keeps ``|x| >= thr_k``
+    (exact zeros are kept too when ``thr_k <= 0``). Returns (masked (K, N),
+    nnz (K, ceil(N/512)) int32), the survivors of each 512-column block;
+    the tail block's pad columns never count."""
+    K, n = x.shape
+    keep = x.abs() >= thresholds.to(torch.float32).reshape(K, 1)
+    masked = torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                              device=x.device))
+    pad = (-n) % BLK
+    if pad:
+        keep = torch.cat([keep, keep.new_zeros((K, pad))], dim=1)
+    nnz = keep.reshape(K, -1, BLK).sum(dim=2, dtype=torch.int32)
+    return masked, nnz
+
+
+def sparse_delta_ref(x, threshold):
+    """The K = 1 case: x (N,), a scalar threshold -> (masked (N,), nnz
+    (ceil(N/512),) int32)."""
+    thr = torch.as_tensor(threshold, dtype=torch.float32,
+                          device=x.device).reshape(1)
+    masked, nnz = sparse_delta2d_ref(x.reshape(1, -1), thr)
+    return masked.reshape(-1), nnz.reshape(-1)
 
 
 def _keep(x, thresholds):

@@ -38,3 +38,37 @@ def adam_update(grads, opt_state, params, *, lr, b1=0.9, b2=0.999, eps=1e-8,
         new_p[k] = p - lr * step
         new_m[k], new_v[k] = m, v
     return new_p, {"m": new_m, "v": new_v, "t": t}
+
+
+def adam_init_rows(flat):
+    """Zeroed Adam state for a (K, N) stack of flat parameter rows, one
+    step count per row."""
+    return {"m": torch.zeros_like(flat), "v": torch.zeros_like(flat),
+            "t": torch.zeros(flat.shape[0], dtype=torch.int32,
+                             device=flat.device)}
+
+
+@torch.no_grad()
+def adam_update_rows(grad, opt_state, flat, *, lr, live, b1=0.9, b2=0.999,
+                     eps=1e-8, l1=0.0):
+    """``adam_update`` on (K, N) flat rows, each row its own optimizer: the
+    reference's per-client Adam under its client-axis vmap
+    (``repro/core/pseudo_label.py:132-156``). ``lr``: (K,) float32 per-row
+    rates; ``live``: (K,) bool. A row that is not live (its batch holds
+    only padding) keeps its parameters, moments and step count exactly, so
+    a client padded to more batches takes only its own steps."""
+    t = opt_state["t"] + live.to(torch.int32)
+    tf = t.to(torch.float32)[:, None]
+    c1 = 1 - b1 ** tf
+    c2 = 1 - b2 ** tf
+    g = grad.to(torch.float32)
+    if l1:
+        g = g + l1 * torch.sign(flat)
+    m = b1 * opt_state["m"] + (1 - b1) * g
+    v = b2 * opt_state["v"] + (1 - b2) * g * g
+    step = (m / c1) / (torch.sqrt(v / c2) + eps)
+    new = flat - lr.to(torch.float32)[:, None] * step
+    keep = live[:, None]
+    return torch.where(keep, new, flat), {
+        "m": torch.where(keep, m, opt_state["m"]),
+        "v": torch.where(keep, v, opt_state["v"]), "t": t}

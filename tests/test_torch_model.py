@@ -136,9 +136,13 @@ def test_dropout_draws_from_the_generator():
     x = torch.from_numpy(_data(8))
 
     def run(seed):
-        return tcnn.cnn_forward(cfg, p, x, train=True,
-                                gen=torch.Generator().manual_seed(seed))
+        mask = tcnn.dropout_masks(cfg, (8,),
+                                  torch.Generator().manual_seed(seed))
+        assert mask.shape == (8, 16) and mask.dtype == torch.bool
+        return tcnn.cnn_forward(cfg, p, x, mask=mask)
     assert torch.equal(run(1), run(1))
     assert not torch.equal(run(1), run(2))
+    assert tcnn.dropout_masks(CNNConfig(**SMALL), (8,),
+                              torch.Generator()) is None
     assert torch.equal(tcnn.cnn_forward(cfg, p, x),
-                       tcnn.cnn_forward(cfg, p, x, train=True))
+                       tcnn.cnn_forward(cfg, p, x, mask=None))

@@ -42,7 +42,8 @@ def test_trainer_matches_reference_sequential_engine():
     want = ref.train()
     port = FedS3ATrainer(make_dataset("basic", scale=scale, seed=seed),
                          FedS3AConfig(rounds=rounds, cnn=CNNConfig(**SMALL),
-                                      seed=seed, device="cpu"),
+                                      seed=seed, device="cpu",
+                                      engine="sequential"),
                          init_params=init)
     got = port.train()
 
@@ -99,7 +100,8 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize("override", [
-    {"engine": "batched"}, {"wire_format": "csr_q"}, {"sparse_comm": False},
+    {"engine": "sharded"}, {"wire_format": "csr_q"},
+    {"wire_format": "csr_q", "engine": "batched"},
     {"base_store": "dense"}, {"client_store": "paged"},
     {"error_feedback": True}, {"round_deadline": 700.0}, {"chunk_size": 64},
     {"checkpoint_dir": "ckpt"}, {"model": "qwen2-1.5b"}])
