@@ -10,7 +10,7 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
 2. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc,
    one process per source, all started together;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the four paths of phase 5 give it and at ragged edges, and time
+   shapes the six paths of phase 5 give it and at ragged edges, and time
    kernel, plain version and (where one exists) the single PyTorch call
    computing the same function, with CUDA events (median over repeats,
    L2 flushed before each repeat of the memory-bound kernels);
@@ -19,15 +19,19 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    2 rounds) and compare schedules, parameters, metrics and ACO; then
    card and CPU once more with an absolute threshold, elementwise; then
    the batched engine against the sequential one, both on the card, with
-   the default dropout, on the p0.2 wire and with the absolute threshold;
-5. drive four paths at full width, ``FedS3ATrainer(make_dataset("basic",
-   scale=0.02), FedS3AConfig(rounds=3, engine=..., wire_format=...))`` on
-   the card: sequential + csr, batched + csr (the default), batched +
-   dense_masked and sequential + dense_masked, each with the launch
-   counters reset just before it and read just after, failing if a
-   kernel of the path never launched or a kernel off the path did; then
-   run one more round of the default path under ``torch.profiler`` and
-   print the device's busy share and its heaviest kernels;
+   the default dropout, on the p0.2 wire, with the absolute threshold, and
+   on the csr_q wire with error feedback;
+5. drive six paths at full width, ``FedS3ATrainer(make_dataset("basic",
+   scale=0.02), FedS3AConfig(rounds=3, engine=..., wire_format=...,
+   error_feedback=...))`` on the card: sequential + csr, batched + csr
+   (the default), batched + dense_masked, sequential + dense_masked, and
+   batched and sequential on csr_q with error feedback, each with the
+   launch counters reset just before it and read just after, failing if
+   a kernel of the path never launched, a kernel off the path did, or
+   (on the csr_q paths) ``csr_quant`` and ``csr_compact`` launched other
+   than their exact count a round; then run one more round of each path
+   under ``torch.profiler`` and print the device's busy share and its
+   heaviest kernels;
 6. print one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -51,6 +55,7 @@ F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
 THETA = 0.95
 N_FULL = 5_213_449            # paper CNN parameter count
 CAP_FULL = 2_606_725          # min(N, ceil(2.5 * 0.2 * N))
+RCAP_FULL = 1_303_363         # ceil(0.25 * N), the EF residual's capacity
 
 
 def log(msg):
@@ -136,6 +141,16 @@ def check_masked_pseudo_ce(torch, ops, ref, dev, gen):
             "max_abs_err": worst, **shapes[0], "other_shapes": shapes[1:]}
 
 
+def _same_bits(torch, a, b):
+    """Equal shape, type and bits (signed zeros included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    as_int = {torch.float32: torch.int32, torch.float16: torch.int16}
+    if a.dtype in as_int:
+        return torch.equal(a.view(as_int[a.dtype]), b.view(as_int[b.dtype]))
+    return torch.equal(a, b)
+
+
 def _delta(torch, gen, dev, k, n):
     """(k, n) update-sized deltas, a tenth of them exact zeros."""
     x = torch.randn((k, n), generator=gen, device=dev) * 1e-3
@@ -152,6 +167,10 @@ def check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush):
              ("sequential upload / chain advance", x, thr, CAP_FULL)]
     nnz_main = int(ref.csr_compact2d_ref(x, thr, CAP_FULL)[2][0])
     cases.append(("overflow cap < nnz", x, thr, max(nnz_main // 3, 1)))
+    # the EF residual: what the payload left, cut at ceil(0.25 N)
+    xres = x6 - ref.csr_capped_mask_ref(x6, thr6, CAP_FULL)[0]
+    thr_res = comm_mod.local_quantile_thresholds(xres, 0.25)
+    cases.append(("EF residual (6, N)", xres, thr_res, RCAP_FULL))
     cases.append(("thr <= 0, exact zeros", x,
                   torch.tensor([-1.0], device=dev), CAP_FULL))
     xr = _delta(torch, gen, dev, 3, 1_000_003)
@@ -167,14 +186,15 @@ def check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush):
             f"nnz {nk.tolist()}, bit-exact {same}")
         check(same, f"csr_compact {label}: kernel differs from plain")
     shapes = []
-    for xx, tt in ((x6, thr6), (x, thr)):
+    for xx, tt, cap in ((x6, thr6, CAP_FULL), (x, thr, CAP_FULL),
+                        (xres, thr_res, RCAP_FULL)):
         k = xx.shape[0]
-        stored = int(torch.clamp(ref.csr_compact2d_ref(xx, tt, CAP_FULL)[2],
-                                 max=CAP_FULL).sum())
-        shapes.append({"shape": [k, N_FULL], "cap": CAP_FULL,
+        stored = int(torch.clamp(ref.csr_compact2d_ref(xx, tt, cap)[2],
+                                 max=cap).sum())
+        shapes.append({"shape": [k, N_FULL], "cap": cap,
                        "stored": stored, **_timed(
-            torch, lambda: ops.csr_compact(xx, tt, CAP_FULL),
-            lambda: ref.csr_compact2d_ref(xx, tt, CAP_FULL),
+            torch, lambda: ops.csr_compact(xx, tt, cap),
+            lambda: ref.csr_compact2d_ref(xx, tt, cap),
             4 * k * N_FULL + 4 * k + 8 * stored + 4 * k, 3 * k * N_FULL,
             reps=30, plain_reps=10, flush=flush)})
     return {"name": "csr_compact", "route": "cuda",
@@ -212,9 +232,6 @@ def check_staleness_agg(torch, ops, ref, dev, gen, flush):
 def check_sparse_delta(torch, ops, ref, dev, gen, flush):
     """Bit for bit (signed zeros included) at the dense_masked paths'
     shapes, a ragged row length, thr <= 0 and exact zeros."""
-    def same(a, b):
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
-
     x6 = _delta(torch, gen, dev, 6, N_FULL)
     xr = _delta(torch, gen, dev, 3, 1_000_003)
     xz = _delta(torch, gen, dev, 2, N_FULL)
@@ -232,7 +249,7 @@ def check_sparse_delta(torch, ops, ref, dev, gen, flush):
             mk, nk = ops.sparse_delta_batch(xx, tt)
         mp, np_ = ref.sparse_delta2d_ref(xx, tt)
         torch.cuda.synchronize()
-        ok = same(mk, mp) and torch.equal(nk, np_)
+        ok = _same_bits(torch, mk, mp) and torch.equal(nk, np_)
         log(f"  sparse_delta {label}: shape {tuple(xx.shape)}, survivors "
             f"{nk.sum(dim=1).tolist()}, bit-exact {ok}")
         check(ok, f"sparse_delta {label}: kernel differs from plain")
@@ -245,7 +262,7 @@ def check_sparse_delta(torch, ops, ref, dev, gen, flush):
     m1, n1 = ops.sparse_delta(x1, t1)
     p1, q1 = ref.sparse_delta_ref(x1, t1)
     torch.cuda.synchronize()
-    ok = same(m1, p1) and torch.equal(n1, q1)
+    ok = _same_bits(torch, m1, p1) and torch.equal(n1, q1)
     log(f"  sparse_delta (1, N) one message: survivors {int(n1.sum())}, "
         f"bit-exact {ok}")
     check(ok, "sparse_delta (1, N): kernel differs from plain")
@@ -262,6 +279,70 @@ def check_sparse_delta(torch, ops, ref, dev, gen, flush):
     return {"name": "sparse_delta", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sparse_delta.cu",
             "replaces": "src/repro/kernels/sparse_delta.py:54",
+            "max_abs_err": 0.0, **shapes[0], "other_shapes": shapes[1:]}
+
+
+def _quant_plain(ref, v, i, s, n, q_dtype):
+    qvals, scales = ref.csr_quantize2d_ref(v, s, q_dtype=q_dtype)
+    offs, counts = ref.csr_pack_indices_ref(i, s, n)
+    return qvals, offs, counts, scales
+
+
+def check_csr_quant(torch, ops, ref, comm_mod, dev, gen, flush):
+    """Bit for bit (q, offsets, block counts, scales) on real csr_compact
+    payloads at full width, (6, cap) and (1, cap), a row cut by its
+    capacity, an all-zero row, stored = 0, a ragged width, and fp16."""
+    def payload(x, keep, cap):
+        v, i, nnz = ops.csr_compact(x, comm_mod.local_quantile_thresholds(
+            x, keep), cap)
+        return v, i, torch.clamp(nnz, max=cap)
+
+    x6 = _delta(torch, gen, dev, 6, N_FULL)
+    v6, i6, s6 = payload(x6, 0.2, CAP_FULL)
+    v1, i1, s1 = v6[:1].clone(), i6[:1].clone(), s6[:1].clone()
+    cut = max(int(s1[0]) // 3, 1)
+    vc, ic, sc = payload(x6[:1].contiguous(), 0.2, cut)
+    vz, iz, sz = v6[:2].clone(), i6[:2].clone(), s6[:2].clone()
+    vz[0] = 0.0                  # an all-zero row with live slots
+    sz[1] = 0                    # and a row with nothing stored
+    xr = _delta(torch, gen, dev, 3, 1_000_003)
+    vr, ir, sr = payload(xr, 0.2, 400_001)
+    cases = [("batched upload (6, cap)", v6, i6, s6, N_FULL, "int8"),
+             ("sequential upload / chain advance (1, cap)", v1, i1, s1,
+              N_FULL, "int8"),
+             ("cap < nnz", vc, ic, sc, N_FULL, "int8"),
+             ("all-zero row, stored = 0", vz, iz, sz, N_FULL, "int8"),
+             ("ragged (3, 1000003)", vr, ir, sr, 1_000_003, "int8"),
+             ("fp16 (6, cap)", v6, i6, s6, N_FULL, "fp16"),
+             ("fp16 ragged (3, 1000003)", vr, ir, sr, 1_000_003, "fp16")]
+    for label, v, i, s, n, q_dtype in cases:
+        got = ops.csr_quantize(v, i, s, n, q_dtype=q_dtype)
+        want = _quant_plain(ref, v, i, s, n, q_dtype)
+        torch.cuda.synchronize()
+        same = [_same_bits(torch, a, b) for a, b in zip(got, want)]
+        log(f"  csr_quant {label}: shape {tuple(v.shape)}, stored "
+            f"{s.tolist()}, bit-exact (q, offsets, counts, scales) {same}")
+        check(all(same), f"csr_quant {label}: kernel differs from plain")
+        check(torch.equal(got[2].sum(dim=1, dtype=torch.int32), s),
+              f"csr_quant {label}: block counts do not sum to stored")
+        if label.startswith("all-zero"):
+            check(float(got[3][0]) == 0.0 and not bool(got[0][0].any())
+                  and not bool(got[2][1].any()),
+                  "csr_quant: all-zero row or stored = 0 mishandled")
+    shapes = []
+    nblk = -(-N_FULL // 512)
+    for v, i, s in ((v6, i6, s6), (v1, i1, s1)):
+        k, stored = v.shape[0], int(s.sum())
+        shapes.append({"shape": [k, CAP_FULL], "n": N_FULL,
+                       "stored": stored, **_timed(
+            torch, lambda: ops.csr_quantize(v, i, s, N_FULL),
+            lambda: _quant_plain(ref, v, i, s, N_FULL, "int8"),
+            8 * stored + 4 * k + 3 * k * CAP_FULL + 2 * k * nblk + 4 * k,
+            6 * stored + 2 * k * CAP_FULL, reps=30, plain_reps=10,
+            flush=flush)})
+    return {"name": "csr_quant", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/csr_quant.cu",
+            "replaces": "src/repro/kernels/csr_quant.py:62",
             "max_abs_err": 0.0, **shapes[0], "other_shapes": shapes[1:]}
 
 
@@ -292,17 +373,18 @@ def _tap_messages(comm):
 
 
 def _trainer_run(torch, port, cnn, init, dev, rounds, threshold="p0.2",
-                 engine="sequential"):
+                 engine="sequential", **extra):
     data = port.make_dataset("basic", scale=0.005, seed=0)
     t0 = time.perf_counter()
     tr = port.FedS3ATrainer(
         data, port.FedS3AConfig(rounds=rounds, cnn=cnn, device=dev,
-                                sparse_threshold=threshold, engine=engine),
+                                sparse_threshold=threshold, engine=engine,
+                                **extra),
         init_params=init)
     warm = port.params_to_numpy(tr.global_params)
     seen = _tap_messages(tr.comm)
     out = tr.train()
-    log(f"  {dev}, {engine}, threshold {threshold}: "
+    log(f"  {dev}, {engine}, threshold {threshold} {extra or ''}: "
         f"{time.perf_counter() - t0:.2f} s, accuracy "
         f"{out['metrics']['accuracy']:.6f}, ACO {out['aco']:.6f}")
     return SimpleNamespace(tr=tr, warm=warm, out=out, seen=seen,
@@ -410,43 +492,61 @@ def engines_on_card(torch, port, rounds=2):
     each participant's masks from the same per-round seeds, so they differ
     only in the order of the products' sums. Held to the same criteria as
     card against CPU: on the p0.2 wire the reference's cross-engine ones
-    plus max |diff| <= 1e-3, and elementwise with the absolute
-    threshold."""
+    plus max |diff| <= 1e-3, and elementwise with the absolute threshold;
+    then the csr_q wire with error feedback on the cross-engine criteria
+    (a sum in another order can move a value across a rounding boundary
+    of the int8 grid, one quantum of that row's scale)."""
     import numpy as np
     cnn = port.CNNConfig()
     gen = torch.Generator().manual_seed(1)
     init = port.params_to_numpy(port.init_cnn(cnn, gen))
-    for threshold in ("p0.2", 1e-6):
+    for threshold, extra in (("p0.2", {}), (1e-6, {}),
+                             ("p0.2", {"wire_format": "csr_q",
+                                       "error_feedback": True})):
         s, b = (_trainer_run(torch, port, cnn, init, "cuda", rounds,
-                             threshold=threshold, engine=engine)
+                             threshold=threshold, engine=engine, **extra)
                 for engine in ("sequential", "batched"))
         if threshold == "p0.2":
             _cross_criteria(np, b, s, f"batched vs sequential after "
-                            f"{rounds} rounds")
+                            f"{rounds} rounds {extra or ''}")
         else:
             _witness(np, b, s, "batched vs sequential")
 
 
-# -- phase 5: the four paths -----------------------------------------------
-# (engine, wire) -> the kernels that path must launch; every other kernel
-# must not launch on it
+# -- phase 5: the six paths ------------------------------------------------
+# (engine, wire, error feedback) -> the kernels that path must launch; every
+# other kernel must not launch on it
+CSR_KERNELS = ("masked_pseudo_ce", "csr_compact", "staleness_agg")
+DENSE_KERNELS = ("masked_pseudo_ce", "sparse_delta", "staleness_agg")
 PATHS = {
-    ("sequential", "csr"): ("masked_pseudo_ce", "csr_compact",
-                            "staleness_agg"),
-    ("batched", "csr"): ("masked_pseudo_ce", "csr_compact", "staleness_agg"),
-    ("batched", "dense_masked"): ("masked_pseudo_ce", "sparse_delta",
-                                  "staleness_agg"),
-    ("sequential", "dense_masked"): ("masked_pseudo_ce", "sparse_delta",
-                                     "staleness_agg"),
+    ("sequential", "csr", False): CSR_KERNELS,
+    ("batched", "csr", False): CSR_KERNELS,
+    ("batched", "dense_masked", False): DENSE_KERNELS,
+    ("sequential", "dense_masked", False): DENSE_KERNELS,
+    ("batched", "csr_q", True): CSR_KERNELS + ("csr_quant",),
+    ("sequential", "csr_q", True): CSR_KERNELS + ("csr_quant",),
 }
-DEFAULT_PATH = ("batched", "csr")
+DEFAULT_PATH = ("batched", "csr", False)
+# launches a round that a path must show exactly: with K = 6 participants,
+# the batched round quantizes the upload stack and the chain advance and
+# compacts the payloads, the residuals and the chain; the sequential round
+# does each per participant
+PER_ROUND = {
+    ("batched", "csr_q", True): {"csr_quant": 2, "csr_compact": 3},
+    ("sequential", "csr_q", True): {"csr_quant": 7, "csr_compact": 13},
+}
 
 
-def drive_path(torch, port, ops, engine, wire, rounds=3):
+def path_name(engine, wire, ef):
+    return f"{engine}+{wire}" + ("+ef" if ef else "")
+
+
+def drive_path(torch, port, ops, engine, wire, ef, rounds=3):
     import numpy as np
     data = port.make_dataset("basic", scale=0.02)
-    cfg = port.FedS3AConfig(rounds=rounds, wire_format=wire)
-    if (engine, wire) != DEFAULT_PATH:
+    cfg = port.FedS3AConfig(rounds=rounds, wire_format=wire,
+                            error_feedback=ef)
+    if (engine, wire, ef) != DEFAULT_PATH:
         cfg.engine = engine
     ops.reset_launches()
     torch.cuda.synchronize()
@@ -458,7 +558,8 @@ def drive_path(torch, port, ops, engine, wire, rounds=3):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(ops.LAUNCHES)
-    check(tr.engine == engine, f"{engine} + {wire} ran {tr.engine}")
+    name = path_name(engine, wire, ef)
+    check(tr.engine == engine, f"{name} ran {tr.engine}")
     n = port.cnn_param_count(tr.cnn)
     check(n == N_FULL, f"paper CNN has {n} parameters, expected {N_FULL}")
     params = port.params_to_numpy(tr.global_params)
@@ -471,16 +572,19 @@ def drive_path(torch, port, ops, engine, wire, rounds=3):
           f"metrics out of range: {m}")
     check(0.0 < out["aco"] < 1.0, f"ACO out of range: {out['aco']}")
     s_round = (t2 - t1) / rounds
-    log(f"  {engine} + {wire}: {rounds} rounds, N = {n}: set-up (warm-up) "
+    log(f"  {name}: {rounds} rounds, N = {n}: set-up (warm-up) "
         f"{t1 - t0:.3f} s, {s_round:.3f} s per round, accuracy "
         f"{m['accuracy']:.4f}, ACO {out['aco']:.4f}; launches {launches}")
-    for name, count in launches.items():
-        if name in PATHS[(engine, wire)]:
-            check(count > 0, f"kernel {name} never launched on {engine} + "
-                  f"{wire}")
+    for kernel, count in launches.items():
+        if kernel in PATHS[(engine, wire, ef)]:
+            check(count > 0, f"kernel {kernel} never launched on {name}")
         else:
-            check(count == 0, f"kernel {name} launched {count} times off "
-                  f"its path ({engine} + {wire})")
+            check(count == 0, f"kernel {kernel} launched {count} times off "
+                  f"its path ({name})")
+    for kernel, per_round in PER_ROUND.get((engine, wire, ef), {}).items():
+        check(launches[kernel] == per_round * rounds,
+              f"{kernel} launched {launches[kernel]} times on {name}, "
+              f"expected {per_round} a round")
     return tr, launches, {"s_per_round": s_round, "setup_s": t1 - t0,
                           "accuracy": m["accuracy"], "aco": out["aco"]}
 
@@ -570,7 +674,8 @@ def main():
     kernels = [check_masked_pseudo_ce(torch, ops, ref, dev, gen),
                check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush),
                check_staleness_agg(torch, ops, ref, dev, gen, flush),
-               check_sparse_delta(torch, ops, ref, dev, gen, flush)]
+               check_sparse_delta(torch, ops, ref, dev, gen, flush),
+               check_csr_quant(torch, ops, ref, comm_mod, dev, gen, flush)]
     del scratch
     for k in kernels:
         for sh in [k] + k["other_shapes"]:
@@ -584,22 +689,23 @@ def main():
     trainer_gpu_vs_cpu(torch, port)
     engines_on_card(torch, port)
 
-    log("phase 5: four paths (full-width paper CNN, scale 0.02, 3 rounds "
-        "each), each profiled for one more round (phase 5b)")
+    log(f"phase 5: {len(PATHS)} paths (full-width paper CNN, scale 0.02, 3 "
+        "rounds each), each profiled for one more round (phase 5b)")
     paths = {}
-    for engine, wire in PATHS:
-        tr, launches, res = drive_path(torch, port, ops, engine, wire)
+    for engine, wire, ef in PATHS:
+        tr, launches, res = drive_path(torch, port, ops, engine, wire, ef)
         res["launches"] = launches
         res["profiled_round"] = profile_round(torch, tr)
-        paths[f"{engine}+{wire}"] = res
+        paths[path_name(engine, wire, ef)] = res
         del tr
 
-    # launches: the default path's count, or for a kernel off it (the
-    # dense_masked wire's sparse_delta), the batched dense_masked path's
+    # launches: the default path's count, or for a kernel off it, that of
+    # the first batched path that runs it (sparse_delta: dense_masked;
+    # csr_quant: csr_q + EF)
     for k in kernels:
         by_path = {p: r["launches"][k["name"]] for p, r in paths.items()}
         k["launches"] = by_path["batched+csr"] or \
-            by_path["batched+dense_masked"]
+            by_path["batched+dense_masked"] or by_path["batched+csr_q+ef"]
         k["launches_by_path"] = by_path
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "paths": paths, "gpu": smi}),

@@ -1,5 +1,5 @@
 """FedS3A aggregation (§IV-D, Eq. 9/10). Port of
-``repro/core/aggregation.py:22-70, 106-150, 280-334``.
+``repro/core/aggregation.py:22-70, 106-150, 173-222, 280-334``.
 
 The group-based variant (Eq. 10) averages |D|-weighted, g(s)-decayed
 client models within each k-means group and arithmetically across
@@ -9,17 +9,17 @@ the host; every weighted sum of dense models runs through
 
 The batched engine folds Eq. 9/10 into one weight per client
 (``combine_weights``) and blends flat (N,) vectors: ``blend_flat`` from
-the uploaded (K, N) stack, ``blend_flat_csr`` from the bases and the CSR
-payloads, whose weighted scatter adds the rows one after another so that
-two runs on the card give the same bits.
+the uploaded (K, N) stack, ``blend_flat_csr`` / ``blend_flat_csr_q`` from
+the bases and the CSR or csr_q payloads, whose weighted scatters add the
+rows one after another so that two runs on the card give the same bits.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.sparse_comm import (csr_columns, flatten_tree,
-                                          unflatten_like)
+from repro_torch.core.sparse_comm import (csr_columns, csr_q_columns,
+                                          flatten_tree, unflatten_like)
 from repro_torch.kernels import ops as kops
 
 
@@ -116,21 +116,34 @@ def blend_flat(server_flat, client_flat, w, f_weight):
     return _blend(server_flat, kops.staleness_agg(client_flat, w), f_weight)
 
 
+def _scatter_rows(cols, values, w, n):
+    """``sum_k w_k * values_k`` scattered to columns ``cols`` (K, cap) of
+    an (n + cap,) accumulator, cut to (n,). Rows are added in order k =
+    0..K-1; within a row every column is distinct (padding goes to spare
+    columns past n, ``csr_columns``), so each column takes at most one add
+    per row and the sum is the same on every run."""
+    out = torch.zeros(n + cols.shape[1], dtype=torch.float32,
+                      device=values.device)
+    for k in range(cols.shape[0]):
+        out.index_add_(0, cols[k], w[k] * values[k].to(torch.float32))
+    return out[:n]
+
+
 def csr_weighted_scatter(values, indices, stored, w, n):
     """``sum_k w_k * decode(payload_k)`` as an (n,) f32 vector from K CSR
     payload rows (values, indices) (K, cap) with ``stored`` (K,) live
-    slots (``aggregation.py:120-133``), without the dense (K, n) decode.
-    Rows are added in order k = 0..K-1; within a row every column is
-    distinct (padding goes to spare columns past n, ``csr_columns``), so
-    each column takes at most one add per row and the sum is the same on
-    every run."""
-    K, cap = values.shape
-    w = w.to(torch.float32)
-    cols = csr_columns(indices, stored, n)
-    out = torch.zeros(n + cap, dtype=torch.float32, device=values.device)
-    for k in range(K):
-        out.index_add_(0, cols[k], w[k] * values[k].to(torch.float32))
-    return out[:n]
+    slots (``aggregation.py:120-133``), without the dense (K, n) decode."""
+    return _scatter_rows(csr_columns(indices, stored, n), values,
+                         w.to(torch.float32), n)
+
+
+def csr_q_weighted_scatter(qvals, qoffs, qcnt, scales, stored, w, n):
+    """The csr_q twin of ``csr_weighted_scatter``
+    (``aggregation.py:173-203``): columns rebuilt from the int16 offsets
+    and block counts, as a receiver does, and the dequantization folded
+    into the weight, row k adding ``(w_k * scale_k) * q``."""
+    ws = w.to(torch.float32) * scales.to(torch.float32)
+    return _scatter_rows(csr_q_columns(qoffs, qcnt, stored, n), qvals, ws, n)
 
 
 def blend_flat_csr(server_flat, base_flat, values, indices, stored, w,
@@ -143,4 +156,17 @@ def blend_flat_csr(server_flat, base_flat, values, indices, stored, w,
                         device=base_flat.device)
     unsup = kops.staleness_agg(base_flat, w) + csr_weighted_scatter(
         values, indices, stored, w, server_flat.shape[0])
+    return _blend(server_flat, unsup, f_weight)
+
+
+def blend_flat_csr_q(server_flat, base_flat, qvals, qoffs, qcnt, scales,
+                     stored, w, f_weight):
+    """FedS3A global update from csr_q upload payloads
+    (``aggregation.py:206-222``): uploaded_k = base_k +
+    dequant(decode(payload_k)), so the weighted client sum is the dense
+    base sum (``staleness_agg``) plus the dequantizing weighted scatter."""
+    w = torch.as_tensor(np.asarray(w), dtype=torch.float32,
+                        device=base_flat.device)
+    unsup = kops.staleness_agg(base_flat, w) + csr_q_weighted_scatter(
+        qvals, qoffs, qcnt, scales, stored, w, server_flat.shape[0])
     return _blend(server_flat, unsup, f_weight)

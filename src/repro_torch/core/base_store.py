@@ -9,8 +9,11 @@ once. The server keeps:
   (slot ``v % (tau + 2)``), ``R_0`` the warmed-up model and
   ``R_{v+1} = R_v + decode(chain_{v+1})``, on the model's device;
 * one chain record per retained transition ``v -> v+1``: the compacted
-  CSR payload and its stored count on the csr wire, the survivor count on
-  the dense_masked wire, the dense size with sparsification disabled;
+  CSR payload and its stored count on the csr wire, the quantized payload
+  (``qvals, qoffs, qcnt, scale``) and its stored count on the csr_q wire
+  (the ring already holds the dequantized reconstruction, so replaying
+  the chain stays canonical f32), the survivor count on the dense_masked
+  wire, the dense size with sparsification disabled;
 * a per-client ``base_version`` array on the host.
 
 Distribution is a chain-delta broadcast: each retained transition goes on
@@ -44,7 +47,8 @@ class VersionedBaseStore:
         self.slot_version[0] = 0
         self.client_version = np.zeros(self.M, np.int64)
         self.version = 0
-        # version v -> {"stored": count, "vals": (cap,), "idx": (cap,)}
+        # version v -> {"stored": count[, "vals", "idx"]} (csr), or
+        # {"stored", "qvals", "qoffs", "qcnt", "scale"} (csr_q)
         self._chain = {}
         self._dist_pending = []      # (count device scalar, bytes/element)
         self._dist_host = 0.0
@@ -93,8 +97,9 @@ class VersionedBaseStore:
     def account_distribution(self, comm, targets):
         """Book this round's chain-delta broadcast onto ``comm``: the
         suffix from the stalest target's version, each transition payload
-        once however many clients listen (CSR payloads with their row_ptr,
-        dense_masked survivors without). With sparsification disabled every
+        once however many clients listen (CSR payloads with their row_ptr
+        and, on csr_q, their scales and block tables; dense_masked
+        survivors without framing). With sparsification disabled every
         chain payload is the whole dense model, so the broadcast is ONE
         dense payload. Then bumps the targets to the new version."""
         targets = np.asarray(sorted(set(int(t) for t in targets)), np.int64)
@@ -112,11 +117,13 @@ class VersionedBaseStore:
                       for t in range(int(vers.min()) + 1, self.version + 1)]
             total = torch.stack([s.reshape(()) for s in stored]).sum()
             self._dist_pending.append((total, sum(comm.elem_bytes())))
-            csr = comm.wire_format == "csr"
+            csr = comm.wire_format in ("csr", "csr_q")
             comm.account_payload(total, self.n, len(stored),
                                  row_ptr_rows=len(stored) if csr else 0)
             if csr:
-                self._dist_host += 4 * (len(stored) + 1)
+                sb, bb = comm.row_overhead_bytes(self.n)
+                self._dist_host += 4 * (len(stored) + 1) + \
+                    (sb + bb) * len(stored)
         self.client_version[targets] = self.version
 
     # -- reporting ---------------------------------------------------------

@@ -13,9 +13,14 @@ learning rates and sparse-difference communication. Port of
   300,000 parameters, sequential above (``feds3a.py:435-471``; the
   sharded engine is not ported, so the rule never picks it).
 
-Wires: the compacted ``"csr"`` wire, the ``"dense_masked"`` wire, and the
+Wires: the compacted ``"csr"`` wire, the quantized ``"csr_q"`` wire
+(``q_dtype="int8"`` or ``"fp16"``), the ``"dense_masked"`` wire, and the
 disabled channel (``sparse_comm=False``); the versioned base store keeps
-the reconstructions and the chain for every engine and wire.
+the reconstructions and the chain for every engine and wire. With
+``error_feedback=True`` every client keeps a dense residual row on the
+device (the resident store, ``feds3a.py:578-605``): what its last upload
+did not deliver, re-offered with the next one, and zeroed when the
+scheduler force-restarts the client.
 
 A round: the scheduler admits ``ceil(C * M)`` uploads; each participant
 trains one pseudo-label epoch from its ring base and uploads its delta;
@@ -51,8 +56,8 @@ from repro_torch.core.functions import (adaptive_learning_rates,
 from repro_torch.core.grouping import group_clients
 from repro_torch.core.metrics import fleet_health, weighted_metrics
 from repro_torch.core.scheduler import SemiAsyncScheduler, paper_latency
-from repro_torch.core.sparse_comm import (SparseComm, flatten_tree,
-                                          unflatten_like)
+from repro_torch.core.sparse_comm import (CSR_FORMATS, SparseComm,
+                                          flatten_tree, unflatten_like)
 from repro_torch.models.cnn import cnn_param_count, dropout_masks, init_cnn
 from repro_torch.optimizer import adam_init
 from repro_torch.weights import params_from_numpy
@@ -81,8 +86,10 @@ class FedS3AConfig:
     group_based: bool = True
     sparse_comm: bool = True
     sparse_threshold: object = "p0.2"   # top-20% magnitude per message
-    wire_format: str = "csr"            # "csr" | "dense_masked"
+    wire_format: str = "csr"            # "csr" | "csr_q" | "dense_masked"
+    q_dtype: str = "int8"               # csr_q values: "int8" | "fp16"
     wire_capacity: object = None        # per-row payload capacity override
+    residual_frac: float = 0.25         # EF residual: top share of N kept
     base_store: str = "versioned"
     client_store: str = "resident"
     error_feedback: bool = False
@@ -106,9 +113,6 @@ def _check_slice(cfg):
     ROADMAP.md queue ("Still to port") that brings it."""
     later = {
         "engine": (cfg.engine == "sharded", "4 (sharded engine)"),
-        "wire_format": (cfg.wire_format not in ("csr", "dense_masked"),
-                        "2 (csr_q wire)"),
-        "error_feedback": (bool(cfg.error_feedback), "2 (EF residual store)"),
         "model": (cfg.model is not None, "3 (LM model zoo)"),
         "base_store": (cfg.base_store != "versioned",
                        "4 (legacy dense base store)"),
@@ -225,8 +229,12 @@ class FedS3ATrainer:
             seed=cfg.seed)
         self.comm = SparseComm(cfg.sparse_threshold, enabled=cfg.sparse_comm,
                                wire_format=cfg.wire_format,
-                               capacity=cfg.wire_capacity)
-        self._csr_wire = self.comm.enabled and self.comm.wire_format == "csr"
+                               capacity=cfg.wire_capacity,
+                               residual_frac=cfg.residual_frac,
+                               q_dtype=cfg.q_dtype)
+        self._csr_wire = self.comm.enabled and \
+            self.comm.wire_format in CSR_FORMATS
+        self._quantized = self._csr_wire and self.comm.wire_format == "csr_q"
         self.g_fn = staleness_fn(cfg.staleness_function)
         self.participation = np.zeros((0, self.M))
         self.logs: list[RoundLog] = []
@@ -300,6 +308,11 @@ class FedS3ATrainer:
         self._zero_opt = adam_init(params)
         self.store = VersionedBaseStore(self._global_flat, self.M, cfg.tau)
         self.global_version = 0
+        # EF: one dense residual row per client, on the model's device (a
+        # disabled channel delivers everything: its residual stays zero)
+        self._residual = torch.zeros((self.M, self._global_flat.shape[0]),
+                                     device=self.device) \
+            if cfg.error_feedback and self.comm.enabled else None
 
     @property
     def global_params(self):
@@ -323,12 +336,17 @@ class FedS3ATrainer:
         """ONE chain-transition encode of the new global model against the
         previous canonical reconstruction (the reference's
         ``_advance_encode_body`` and ``_chain_entry``): ``(R_{r+1}, chain
-        entry)``. Disabled: R_{r+1} is the new model itself, bit for bit."""
+        entry)``. On csr_q the entry keeps the quantized payload and R_{r+1}
+        adds its dequantized decode. Disabled: R_{r+1} is the new model
+        itself, bit for bit."""
         if self._csr_wire:
-            (vals, idx), stored, decoded = self.comm.csr_core(new_flat[None],
-                                                              prev[None])
-            return prev + decoded[0], {"vals": vals[0], "idx": idx[0],
-                                       "stored": stored[0]}
+            payload, stored, decoded = self.comm.csr_core(new_flat[None],
+                                                          prev[None])
+            keys = ("qvals", "qoffs", "qcnt", "scale") if self._quantized \
+                else ("vals", "idx")
+            chain = {k: p[0] for k, p in zip(keys, payload)}
+            chain["stored"] = stored[0]
+            return prev + decoded[0], chain
         if not self.comm.enabled:
             return new_flat, {"stored": new_flat.shape[0]}
         masked, nnz = self.comm.batch_core(new_flat[None], prev[None])
@@ -341,11 +359,21 @@ class FedS3ATrainer:
         return sorted(set(part_ids) | set(ev.forced))
 
     def _advance_versioned(self, recon, chain, ev, part_ids):
-        """Install the new reconstruction + chain entry and book the
-        chain-delta broadcast to this round's targets."""
+        """Install the new reconstruction + chain entry, book the
+        chain-delta broadcast to this round's targets, and zero the
+        residuals of the tau-forced restarts."""
         targets = self._distribution_plan(part_ids, ev)
         self.store.advance(recon, chain, self.global_version)
         self.store.account_distribution(self.comm, targets)
+        self._reset_forced_residuals(ev.forced)
+
+    def _reset_forced_residuals(self, forced):
+        """A forced restart discards the client's EF residual with its
+        trajectory: it was accumulated against a base the client no longer
+        holds (``feds3a.py:813-848``; the fault layer, not yet ported,
+        retires lost, departed and rejoining clients' residuals too)."""
+        if self._residual is not None and forced:
+            self._residual[torch.as_tensor(forced, device=self.device)] = 0.0
 
     # ------------------------------------------------------------------
     def run_round(self):
@@ -412,7 +440,13 @@ class FedS3ATrainer:
         client_models, sizes, stalenesses, hists = [], [], [], []
         for j, i in enumerate(part_ids):
             newp, base = self._train_client(i, float(lrs[i]), seeds[j])
-            delta, _ = self.comm.encode(newp, base)
+            if self._residual is None:
+                delta, _ = self.comm.encode(newp, base)
+            else:
+                delta, _, res = self.comm.encode(
+                    newp, base, residual=unflatten_like(self._residual[i],
+                                                        newp))
+                self._residual[i] = flatten_tree(res)
             uploaded = self.comm.apply(base, delta)
             client_models.append(uploaded)
             x = self.data["clients"][i]["x"]
@@ -458,23 +492,33 @@ class FedS3ATrainer:
             out[j, :, :m.shape[1]] = m
         return out
 
-    def _upload(self, trained, base_flat, xs, vs, with_hist):
-        """Encode and book the K uploads; returns (what the aggregation
-        reads, histograms or None): the CSR payload, or the uploaded
-        (K, N) stack on the dense wires (``feds3a.py:1051-1104``)."""
+    def _upload(self, trained, base_flat, part_ids, xs, vs, with_hist):
+        """Encode and book the K uploads, advancing the participants' EF
+        residuals; returns (what the aggregation reads, histograms or
+        None): the CSR or csr_q payload with its stored counts, or the
+        uploaded (K, N) stack on the dense wires (``feds3a.py:1051-1134,
+        1268-1290``)."""
         K, n = trained.shape
+        residual = None
+        if self._residual is not None:
+            rows = torch.as_tensor(part_ids, device=self.device)
+            residual = self._residual.index_select(0, rows)
         if self._csr_wire:
-            payload, stored, decoded = self.comm.csr_core(trained, base_flat)
+            payload, stored, decoded, *res = self.comm.csr_core(
+                trained, base_flat, residual)
             self.comm.account_batch_csr(stored, n, K)
             uploaded = base_flat + decoded if with_hist else None
             sent = payload + (stored,)
         else:
             if self.comm.enabled:
-                masked, nnz = self.comm.batch_core(trained, base_flat)
+                masked, nnz, *res = self.comm.batch_core(trained, base_flat,
+                                                         residual)
             else:
                 masked, nnz = trained - base_flat, None
             self.comm.account_batch(nnz, n, K)
             uploaded = sent = base_flat + masked
+        if residual is not None:
+            self._residual.index_copy_(0, rows, res[0])
         hists = self.histogram_batch(uploaded, xs, vs).cpu().numpy() \
             if with_hist else None
         return sent, hists
@@ -495,7 +539,7 @@ class FedS3ATrainer:
         base_flat = self.store.gather(part_ids)
         trained, _ = self.batched_epoch(base_flat, xs, vs, lrs[part_ids],
                                         self._stacked_masks(part_ids, seeds))
-        sent, hists = self._upload(trained, base_flat, xs, vs,
+        sent, hists = self._upload(trained, base_flat, part_ids, xs, vs,
                                    cfg.group_based and K > 1)
 
         # server supervised epoch on the current global model (Eq. 6)
@@ -510,7 +554,9 @@ class FedS3ATrainer:
             [ev.stale[i] for i in part_ids], self.g_fn,
             None if hists is None else self._groups(hists))
         self.global_version += 1
-        if self._csr_wire:
+        if self._quantized:
+            new_flat = agg.blend_flat_csr_q(sp_flat, base_flat, *sent, w, fw)
+        elif self._csr_wire:
             new_flat = agg.blend_flat_csr(sp_flat, base_flat, *sent, w, fw)
         else:
             new_flat = agg.blend_flat(sp_flat, sent, w, fw)

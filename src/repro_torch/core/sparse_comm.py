@@ -1,10 +1,11 @@
-"""Sparse-difference transmission (§IV-F) with deferred ACO accounting.
-Port of ``repro/core/sparse_comm.py`` for the ``csr`` and ``dense_masked``
-wires and the disabled channel.
+"""Sparse-difference transmission (§IV-F) with deferred ACO accounting and
+error feedback. Port of ``repro/core/sparse_comm.py`` for the ``csr``,
+``csr_q`` and ``dense_masked`` wires and the disabled channel.
 
-A message is ``delta = new - base``, thresholded per row at the
-``1 - keep_frac`` quantile of a strided 2k sample of ``|delta|`` (or at an
-absolute magnitude). Wires (``wire_format=``):
+A message is ``delta = new - base`` (plus the sender's error-feedback
+residual, when EF is on), thresholded per row at the ``1 - keep_frac``
+quantile of a strided 2k sample of ``|delta|`` (or at an absolute
+magnitude). Wires (``wire_format=``):
 
 * ``"csr"`` (default): the ``csr_compact`` kernel packs the survivors
   ``(|delta| >= thr) & (delta != 0)`` into (values f32, indices int32)
@@ -12,6 +13,14 @@ absolute magnitude). Wires (``wire_format=``):
   the receiver scatters that payload back to dense. Bytes on the wire are
   the stored elements at 4 + 4 bytes plus a ``4 * (rows + 1)`` row_ptr
   per batch.
+* ``"csr_q"``: the same payload through the ``csr_quant`` kernel: int8
+  values with a per-row absmax scale (``q_dtype="fp16"``: float16 values,
+  no scale shipped) and int16 in-block column offsets with a per-row
+  ``ceil(N/512)``-entry int16 block-count table: 1 + 2 bytes per stored
+  element (fp16: 2 + 2), plus 4 bytes of scale and ``2 * ceil(N/512)``
+  of table per row. Everything downstream (the receiver's decode, the
+  chain, the EF residual) is computed from the dequantized payload, so
+  the rounding error joins the residual.
 * ``"dense_masked"``: the ``sparse_delta`` kernel keeps ``|delta| >= thr``
   (exact zeros too when ``thr <= 0``) and counts the survivors; the masked
   dense delta moves between the engine's stages, and each survivor books
@@ -19,12 +28,19 @@ absolute magnitude). Wires (``wire_format=``):
 * ``enabled=False``: the dense delta moves as it is and books ``4 * N``
   bytes per message as a dense payload.
 
+Error feedback: the part of ``delta`` the receiver does not get back is
+the sender's new residual, re-offered with the next message. On the CSR
+wires it is ``delta - decoded`` truncated to its top ``residual_frac`` of
+N by magnitude (a per-row sampled quantile, then ``csr_compact`` at
+``residual_capacity``); on ``dense_masked`` it is ``delta - masked``; a
+disabled channel sends everything and keeps a zero residual.
+
 ACO is payload bytes over dense bytes. Survivor counts stay on the device
 until ``aco`` / ``payload_bytes`` / ``wire_breakdown`` read them, in one
 transfer.
 
-Still to port: the quantized ``csr_q`` wire, the error-feedback residual,
-chunked layouts and wire validation.
+Still to port: chunked layouts, paged residuals (``encode_paged``) and
+wire validation.
 """
 from __future__ import annotations
 
@@ -33,10 +49,17 @@ import math
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import local_quantile_thresholds
+from repro_torch.kernels.ref import (csr_dequantize_ref,
+                                     csr_unpack_indices_ref,
+                                     local_quantile_thresholds)
 
 CAP_FACTOR = 2.5          # payload capacity slack over the target keep_frac
-WIRE_FORMATS = ("csr", "dense_masked")
+RESIDUAL_FRAC = 0.25      # EF residual: top fraction of N kept by magnitude
+WIRE_FORMATS = ("csr", "csr_q", "dense_masked")
+CSR_FORMATS = ("csr", "csr_q")
+Q_DTYPES = tuple(kops.Q_DTYPES)      # csr_q value types: "int8", "fp16"
+Q_BLOCK = 512             # csr_q offsets lie in [0, Q_BLOCK); one block
+                          # count per Q_BLOCK columns
 
 
 def tree_sub(a, b):
@@ -106,6 +129,21 @@ def csr_decode(values, indices, stored, n):
     return out.scatter_(1, csr_columns(indices, stored, n), values)[:, :n]
 
 
+def csr_q_columns(qoffs, qcnt, stored, n):
+    """``csr_columns`` of csr_q rows: absolute columns rebuilt from the
+    int16 offsets and the block-count table, as a receiver does."""
+    return csr_columns(csr_unpack_indices_ref(qoffs, qcnt), stored, n)
+
+
+def csr_q_decode(qvals, qoffs, qcnt, scales, stored, n):
+    """The receiver's decode of csr_q rows to dense (K, n) f32: columns
+    from offsets + block counts, values ``q * scale``."""
+    K, cap = qvals.shape
+    out = torch.zeros((K, n + cap), dtype=torch.float32, device=qvals.device)
+    return out.scatter_(1, csr_q_columns(qoffs, qcnt, stored, n),
+                        csr_dequantize_ref(qvals, scales))[:, :n]
+
+
 class SparseComm:
     """Comm channel with deferred ACO bookkeeping.
 
@@ -113,29 +151,55 @@ class SparseComm:
     (``"p0.2"`` is the paper's setting); a float is an absolute magnitude
     threshold (CSR capacity N). ``capacity`` pins the per-row CSR payload
     capacity. ``enabled=False`` sends every message dense.
+    ``residual_frac``: the EF residual's share of N on the CSR wires.
+    ``q_dtype``: the csr_q value type, ``"int8"`` or ``"fp16"``.
+
+    A tau-forced restart discards the client's residual with its
+    trajectory (the trainer zeroes it): it was accumulated against a base
+    the client no longer holds.
     """
 
     def __init__(self, threshold="p0.2", *, enabled=True, wire_format="csr",
-                 capacity=None, cap_factor=CAP_FACTOR):
+                 capacity=None, cap_factor=CAP_FACTOR,
+                 residual_frac=RESIDUAL_FRAC, q_dtype="int8"):
         if wire_format not in WIRE_FORMATS:
             raise ValueError(f"wire_format must be one of {WIRE_FORMATS}, "
                              f"got {wire_format!r}")
+        if q_dtype not in Q_DTYPES:
+            raise ValueError(f"q_dtype must be one of {Q_DTYPES}, "
+                             f"got {q_dtype!r}")
         self.threshold = threshold
         self.enabled = enabled
         self.wire_format = wire_format
         self.capacity = capacity
         self.cap_factor = cap_factor
+        self.residual_frac = residual_frac
+        self.q_dtype = q_dtype
         self._values_host = 0.0
         self._indices_host = 0.0
         self._dense_payload_host = 0.0   # disabled-channel dense payloads
         self._pending_payload = []      # (survivor count on device, vb, ib)
         self.dense_bytes = 0
         self.row_ptr_bytes = 0
+        self.scales_bytes = 0           # csr_q per-row scales
+        self.block_table_bytes = 0      # csr_q per-row block-count tables
         self.messages = 0
 
     def elem_bytes(self):
-        """(value_bytes, index_bytes) per stored element: f32 + int32."""
+        """(value_bytes, index_bytes) per stored element: f32 + int32, or
+        on csr_q int8 (fp16) + an int16 offset."""
+        if self.wire_format == "csr_q":
+            return (2, 2) if self.q_dtype == "fp16" else (1, 2)
         return 4, 4
+
+    def row_overhead_bytes(self, n):
+        """(scale_bytes, block_table_bytes) of one n-parameter csr_q row:
+        the f32 scale (none in fp16 mode, whose scales are all ones) and
+        the int16 block-count table; zero on the other wires."""
+        if self.wire_format != "csr_q":
+            return 0, 0
+        scale = 0 if self.q_dtype == "fp16" else 4
+        return scale, 2 * max((n + Q_BLOCK - 1) // Q_BLOCK, 1)
 
     def _quantile_frac(self):
         if isinstance(self.threshold, str) and self.threshold.startswith("p"):
@@ -151,6 +215,10 @@ class SparseComm:
             return n
         return max(1, min(n, int(math.ceil(self.cap_factor * frac * n))))
 
+    def residual_capacity(self, n):
+        """Static per-row capacity of the EF residual."""
+        return max(1, min(n, int(math.ceil(self.residual_frac * n))))
+
     def _row_thresholds(self, delta, *, fused="low"):
         """(K,) thresholds; ``fused="high"`` rounds a quantile as the
         reference's one-message encode does (``ref.sampled_quantile``)."""
@@ -160,73 +228,125 @@ class SparseComm:
         return torch.full((delta.shape[0],), float(self.threshold),
                           dtype=torch.float32, device=delta.device)
 
-    def csr_core(self, new_flat, base_flat):
-        """The CSR encode pipeline on (K, n) flat stacks (the reference's
-        ``csr_core(False)``): ``(new, base) -> ((values, indices), stored,
-        decoded)`` with ``stored = min(nnz, cap)`` the on-wire count per row
-        and ``decoded`` the receiver's dense reconstruction, scattered from
-        the payload. Per-row only; the caller books the stored counts."""
-        n = new_flat.shape[1]
-        delta = (new_flat - base_flat).contiguous()
-        thr = self._row_thresholds(delta)
+    def _encode_payload(self, delta):
+        """(K, n) deltas -> (wire payload, stored, decoded): the payload is
+        (values, indices) on csr and (qvals, offsets, block_counts,
+        scales) on csr_q; ``decoded`` is the receiver's dense decode of
+        it, dequantized on csr_q."""
+        n = delta.shape[1]
         cap = self.payload_capacity(n)
-        vals, idx, nnz = kops.csr_compact(delta, thr, cap)
+        vals, idx, nnz = kops.csr_compact(delta, self._row_thresholds(delta),
+                                          cap)
         stored = torch.clamp(nnz, max=cap)
-        return (vals, idx), stored, csr_decode(vals, idx, stored, n)
+        if self.wire_format != "csr_q":
+            return (vals, idx), stored, csr_decode(vals, idx, stored, n)
+        payload = kops.csr_quantize(vals, idx, stored, n,
+                                    q_dtype=self.q_dtype)
+        return payload, stored, csr_q_decode(*payload, stored, n)
 
-    def batch_core(self, new_flat, base_flat):
+    def csr_core(self, new_flat, base_flat, residual_flat=None):
+        """The CSR-family encode pipeline on (K, n) flat stacks (the
+        reference's ``csr_core``): ``(new, base[, residual]) -> (payload,
+        stored, decoded[, residual'])`` with ``stored = min(nnz, cap)`` the
+        on-wire count per row and ``decoded`` the receiver's dense decode.
+        With a residual, the message is ``new - base + residual`` and
+        ``residual'`` (K, n) is ``message - decoded`` (sub-threshold mass,
+        capacity overflow and, on csr_q, rounding error) cut to its top
+        ``residual_frac`` per row at ``residual_capacity``. Per-row only;
+        the caller books the stored counts."""
+        delta = new_flat - base_flat
+        if residual_flat is not None:
+            delta = delta + residual_flat
+        delta = delta.contiguous()
+        payload, stored, decoded = self._encode_payload(delta)
+        if residual_flat is None:
+            return payload, stored, decoded
+        n = delta.shape[1]
+        res = (delta - decoded).contiguous()
+        rcap = self.residual_capacity(n)
+        rvals, ridx, rnnz = kops.csr_compact(
+            res, local_quantile_thresholds(res, self.residual_frac), rcap)
+        res = csr_decode(rvals, ridx, torch.clamp(rnnz, max=rcap), n)
+        return payload, stored, decoded, res
+
+    def batch_core(self, new_flat, base_flat, residual_flat=None):
         """The ``dense_masked`` encode pipeline on (K, n) flat stacks (the
-        reference's ``batch_core(False)``): ``(new, base) -> (masked (K, n),
-        nnz (K,))``, one ``sparse_delta`` launch with per-row thresholds.
+        reference's ``batch_core``): ``(new, base[, residual]) -> (masked
+        (K, n), nnz (K,)[, residual'])``, one ``sparse_delta`` launch with
+        per-row thresholds; ``residual' = message - masked``, untruncated.
         The caller books ``nnz`` (``account_batch``)."""
-        delta = (new_flat - base_flat).contiguous()
+        delta = new_flat - base_flat
+        if residual_flat is not None:
+            delta = delta + residual_flat
+        delta = delta.contiguous()
         frac = self._quantile_frac()
         if frac is not None:
             masked, blocks, _ = kops.sparse_delta_topfrac(delta, frac)
         else:
             masked, blocks = kops.sparse_delta_batch(
                 delta, self._row_thresholds(delta))
-        return masked, blocks.sum(dim=1)
+        if residual_flat is None:
+            return masked, blocks.sum(dim=1)
+        return masked, blocks.sum(dim=1), delta - masked
 
-    def encode(self, new_params, base_params):
-        """One message ``new - base`` -> (sparse delta tree, stats); booked
-        at once. ``stats["nnz"]`` is the stored (csr) or surviving
+    def encode(self, new_params, base_params, residual=None):
+        """One message ``new - base`` (+ ``residual``, a tree, under EF) ->
+        (sparse delta tree, stats[, residual' tree]); booked at once.
+        ``stats["nnz"]`` is the stored (CSR wires) or surviving
         (dense_masked) count as a device scalar, N when disabled."""
         delta = tree_sub(new_params, base_params)
+        if residual is not None:
+            delta = tree_add(delta, residual)
         flat = flatten_tree(delta)
         n = flat.shape[0]
         if not self.enabled:
             self.account_batch(None, n, 1)
-            return delta, {"nnz": n, "total": n, "rows": 1}
-        if self.wire_format == "csr":
-            _, stored, decoded = self.csr_core(flat[None],
-                                               torch.zeros_like(flat)[None])
-            stats = {"nnz": stored[0], "total": n, "rows": 1}
+            out = delta, {"nnz": n, "total": n, "rows": 1}
+            if residual is None:
+                return out
+            return out + ({k: torch.zeros_like(v) for k, v in delta.items()},)
+        if self.wire_format in CSR_FORMATS:
+            zero = torch.zeros_like(flat)[None]
+            out = self.csr_core(flat[None], zero,
+                                None if residual is None else zero)
+            stats = {"nnz": out[1][0], "total": n, "rows": 1}
             self.account_batch_csr(stats["nnz"], n, 1)
-            return unflatten_like(decoded[0], delta), stats
+            return (unflatten_like(out[2][0], delta), stats) + tuple(
+                unflatten_like(r[0], delta) for r in out[3:])
         thr = self._row_thresholds(flat[None], fused="high")
         masked, blocks = kops.sparse_delta(flat, thr)
         stats = {"nnz": blocks.sum(), "total": n, "rows": 1}
         self._account(stats["nnz"], n, 1)
-        return unflatten_like(masked, delta), stats
+        out = unflatten_like(masked, delta), stats
+        if residual is None:
+            return out
+        return out + (unflatten_like(flat - masked, delta),)
 
-    def encode_batch(self, new_flat, base_flat):
+    def encode_batch(self, new_flat, base_flat, residual_flat=None):
         """K messages at once from (K, n) flat stacks -> (the receiver's
-        dense deltas (K, n), stats with the per-row (K,) count); booked at
-        once. Disabled: the dense delta, count n per row."""
+        dense deltas (K, n), stats with the per-row (K,) count[, residual'
+        (K, n)]); booked at once. Disabled: the dense delta, count n per
+        row, a zero residual."""
         K, n = new_flat.shape
         if not self.enabled:
             self.account_batch(None, n, K)
-            return new_flat - base_flat, {
-                "nnz": torch.full((K,), n, device=new_flat.device),
-                "total": n, "rows": K}
-        if self.wire_format == "csr":
-            _, stored, decoded = self.csr_core(new_flat, base_flat)
+            delta = new_flat - base_flat
+            if residual_flat is not None:
+                delta = delta + residual_flat
+            out = delta, {"nnz": torch.full((K,), n, device=new_flat.device),
+                          "total": n, "rows": K}
+            if residual_flat is None:
+                return out
+            return out + (torch.zeros_like(delta),)
+        if self.wire_format in CSR_FORMATS:
+            _, stored, decoded, *res = self.csr_core(new_flat, base_flat,
+                                                     residual_flat)
             self.account_batch_csr(stored, n, K)
-            return decoded, {"nnz": stored, "total": n, "rows": K}
-        masked, nnz = self.batch_core(new_flat, base_flat)
+            return (decoded, {"nnz": stored, "total": n, "rows": K}, *res)
+        masked, nnz, *res = self.batch_core(new_flat, base_flat,
+                                            residual_flat)
         self.account_batch(nnz, n, K)
-        return masked, {"nnz": nnz, "total": n, "rows": K}
+        return (masked, {"nnz": nnz, "total": n, "rows": K}, *res)
 
     def apply(self, base_params, sparse_delta_tree):
         return tree_add(base_params, sparse_delta_tree)
@@ -250,16 +370,24 @@ class SparseComm:
         self.dense_bytes += total_params * 4
         self.messages += n_messages
 
+    def _book_rows(self, rows, params_per_message):
+        """CSR framing of ``rows`` rows: one shared row_ptr, plus the csr_q
+        per-row scales and block-count tables."""
+        self.row_ptr_bytes += 4 * (rows + 1)
+        sb, bb = self.row_overhead_bytes(params_per_message)
+        self.scales_bytes += sb * rows
+        self.block_table_bytes += bb * rows
+
     def account_batch_csr(self, stored_nnz, params_per_message, n_messages):
-        """Book an n_messages-row CSR batch whose stored counts are on the
-        device: one value + one index per stored element, one shared
-        row_ptr. No host sync."""
+        """Book an n_messages-row CSR-family batch whose stored counts are
+        on the device: one value + one index per stored element at the
+        format's widths, and the batch's framing. No host sync."""
         if not self.enabled:
             self.account_batch(stored_nnz, params_per_message, n_messages)
             return
         vb, ib = self.elem_bytes()
         self._pending_payload.append((torch.sum(stored_nnz), vb, ib))
-        self.row_ptr_bytes += 4 * (n_messages + 1)
+        self._book_rows(n_messages, params_per_message)
         self.dense_bytes += params_per_message * n_messages * 4
         self.messages += n_messages
 
@@ -267,11 +395,11 @@ class SparseComm:
                         n_messages, *, row_ptr_rows=0):
         """Book ``n_messages`` messages whose total stored element count is
         one device scalar (the base store's broadcast); ``row_ptr_rows``
-        adds the ``4 * (rows + 1)`` CSR row_ptr framing."""
+        adds the CSR framing of that many rows."""
         vb, ib = self.elem_bytes()
         self._pending_payload.append((stored_total_dev, vb, ib))
         if row_ptr_rows:
-            self.row_ptr_bytes += 4 * (row_ptr_rows + 1)
+            self._book_rows(row_ptr_rows, params_per_message)
         self.dense_bytes += params_per_message * n_messages * 4
         self.messages += n_messages
 
@@ -289,7 +417,8 @@ class SparseComm:
     def payload_bytes(self) -> float:
         self._materialize()
         return self._values_host + self._indices_host + \
-            self._dense_payload_host + self.row_ptr_bytes
+            self._dense_payload_host + self.row_ptr_bytes + \
+            self.scales_bytes + self.block_table_bytes
 
     @property
     def aco(self) -> float:
@@ -297,12 +426,12 @@ class SparseComm:
             else 0.0
 
     def wire_breakdown(self):
-        """Cumulative bytes on the wire by component (the reference's keys;
-        the csr_q scale component is zero on these wires)."""
+        """Cumulative bytes on the wire by component (the reference's keys:
+        csr_q block-count tables count as indices)."""
         self._materialize()
         return {"values_bytes": self._values_host,
-                "indices_bytes": self._indices_host,
-                "scales_bytes": 0.0,
+                "indices_bytes": self._indices_host + self.block_table_bytes,
+                "scales_bytes": float(self.scales_bytes),
                 "row_ptr_bytes": float(self.row_ptr_bytes),
                 "dense_payload_bytes": self._dense_payload_host,
                 "payload_bytes": self.payload_bytes,

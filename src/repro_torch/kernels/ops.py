@@ -1,5 +1,5 @@
 """Wrappers around the port's CUDA kernels. Port of
-``repro/kernels/ops.py:39-118`` (all but ``csr_quantize``).
+``repro/kernels/ops.py:39-118``.
 
 Each wrapper checks its inputs, then picks by the tensor's device: a CPU
 tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
@@ -16,7 +16,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
 LAUNCHES = {"masked_pseudo_ce": 0, "csr_compact": 0, "staleness_agg": 0,
-            "sparse_delta": 0}
+            "sparse_delta": 0, "csr_quant": 0}
+Q_DTYPES = {"int8": torch.int8, "fp16": torch.float16}
 
 
 def reset_launches():
@@ -125,6 +126,50 @@ def csr_compact(x, thresholds, cap):
             cap, stream)
     LAUNCHES["csr_compact"] += 1
     return vals, idx, incl[:, -1].contiguous()
+
+
+def csr_quantize(values, indices, stored, n, *, q_dtype="int8"):
+    """Quantize and index-pack compacted CSR rows, the ``csr_q`` wire:
+    (values (K, cap) f32, indices (K, cap) int32 ascending in each stored
+    prefix, stored (K,) int32) -> (qvals (K, cap) int8 | f16, offsets
+    (K, cap) int16, block_counts (K, ceil(n/512)) int16, scales (K,) f32),
+    the block counts over the stored prefix only."""
+    _check("values", values, 2)
+    _check("indices", indices, 2, torch.int32)
+    _check("stored", stored, 1, torch.int32)
+    if q_dtype not in Q_DTYPES:
+        raise ValueError(f"q_dtype must be one of {tuple(Q_DTYPES)}, got "
+                         f"{q_dtype!r}")
+    K, cap = values.shape
+    if indices.shape != values.shape or stored.shape[0] != K:
+        raise ValueError(f"shapes disagree: values {tuple(values.shape)}, "
+                         f"indices {tuple(indices.shape)}, stored "
+                         f"{tuple(stored.shape)}")
+    n = int(n)
+    if n < 1 or cap < 1:
+        raise ValueError(f"n and cap must be positive, got n={n}, "
+                         f"cap={cap}")
+    if not _same_device(values, indices, stored):
+        qvals, scales = ref.csr_quantize2d_ref(values, stored,
+                                               q_dtype=q_dtype)
+        offs, counts = ref.csr_pack_indices_ref(indices, stored, n)
+        return qvals, offs, counts, scales
+    if K > 65535:
+        raise ValueError(f"at most 65535 rows per launch, got {K}")
+    dev = values.device
+    nblk = max((n + ref.BLK - 1) // ref.BLK, 1)
+    qvals = torch.empty((K, cap), dtype=Q_DTYPES[q_dtype], device=dev)
+    offs = torch.empty((K, cap), dtype=torch.int16, device=dev)
+    counts = torch.empty((K, nblk), dtype=torch.int16, device=dev)
+    scales = torch.empty(K, dtype=torch.float32, device=dev)
+    absmax = torch.zeros(K, dtype=torch.int32, device=dev)
+    if K:
+        _launch("csr_quant_launch", values.data_ptr(), indices.data_ptr(),
+                stored.data_ptr(), absmax.data_ptr(), qvals.data_ptr(),
+                offs.data_ptr(), counts.data_ptr(), scales.data_ptr(), K,
+                cap, nblk, int(q_dtype == "fp16"), _stream(values))
+        LAUNCHES["csr_quant"] += 1
+    return qvals, offs, counts, scales
 
 
 def sparse_delta_batch(x, thresholds):

@@ -159,6 +159,99 @@ def csr_decode_ref(values, indices, n):
     return out.scatter_add_(1, indices.long(), values.to(torch.float32))
 
 
+INV_127 = float(np.float32(1.0) / np.float32(127.0))   # fl(1/127)
+
+
+def _valid_slots(cap, stored, device):
+    slot = torch.arange(cap, device=device)
+    return slot[None] < stored.to(torch.int64).reshape(-1, 1)
+
+
+def _inverse(scales):
+    """1 / scale where scale > 0, else 0, as an IEEE division."""
+    s = scales.to(torch.float32)
+    one = torch.ones_like(s)
+    return torch.where(s > 0, torch.div(one, torch.where(s > 0, s, one)),
+                       torch.zeros_like(s))
+
+
+def _round_clip(x):
+    """round half to even, then clip to [-127, 127] (float32)."""
+    return torch.clamp(torch.round(x), -127.0, 127.0)
+
+
+def csr_quantize2d_ref(values, stored, *, q_dtype="int8"):
+    """Per-row absmax quantization of packed CSR values, the ``csr_q``
+    wire (``repro/kernels/ref.py:135-164``). values (K, cap) f32, stored
+    (K,) live prefix lengths -> (qvals (K, cap) int8 | f16, scales (K,)
+    f32). int8: ``scale = absmax * fl(1/127)`` over the stored prefix (the
+    reference writes ``absmax / 127``, which its compiler turns into that
+    product), ``q = clip(round_half_even(v * (1 / scale)), -127, 127)``;
+    an all-zero row gets scale 0 and q 0. fp16: values cast with round to
+    nearest even, scales all ones."""
+    K, cap = values.shape
+    valid = _valid_slots(cap, stored, values.device)
+    v = torch.where(valid, values.to(torch.float32),
+                    torch.zeros((), dtype=torch.float32,
+                                device=values.device))
+    if q_dtype == "fp16":
+        return v.to(torch.float16), torch.ones(K, dtype=torch.float32,
+                                               device=values.device)
+    scale = v.abs().amax(dim=1) * INV_127
+    q = _round_clip(v * _inverse(scale)[:, None])
+    return q.to(torch.int8), scale
+
+
+def csr_dequantize_ref(qvals, scales):
+    """(K, cap) quantized values -> f32 ``q * scale`` (fp16 payloads carry
+    all-one scales, so one expression serves both value types)."""
+    return qvals.to(torch.float32) * scales.to(torch.float32)[:, None]
+
+
+def quantize_dense_ref(dense, scales, *, q_dtype="int8"):
+    """Elementwise quantize -> dequantize of a dense (K, n) stack under the
+    per-row scales: the scatter-free twin of decoding a ``csr_q`` payload
+    whose scales came from the same rows."""
+    if q_dtype == "fp16":
+        return dense.to(torch.float16).to(torch.float32)
+    s = scales.to(torch.float32)[:, None]
+    return _round_clip(dense.to(torch.float32) * _inverse(scales)[:, None]) \
+        * s
+
+
+def csr_pack_indices_ref(indices, stored, n):
+    """(K, cap) absolute int32 columns (ascending in each stored prefix)
+    -> (offsets (K, cap) int16 = col % 512 with padding zeroed,
+    block_counts (K, ceil(n/512)) int16, the stored slots per 512-column
+    block) (``repro/kernels/ref.py:183-203``)."""
+    K, cap = indices.shape
+    nblk = max((n + BLK - 1) // BLK, 1)
+    valid = _valid_slots(cap, stored, indices.device)
+    idx = indices.to(torch.int64)
+    offs = torch.where(valid, idx % BLK, torch.zeros_like(idx))
+    blk = torch.where(valid, idx // BLK, torch.full_like(idx, nblk))
+    counts = torch.zeros((K, nblk + 1), dtype=torch.int32,
+                         device=indices.device)
+    counts.scatter_add_(1, blk, torch.ones_like(blk, dtype=torch.int32))
+    return offs.to(torch.int16), counts[:, :nblk].to(torch.int16)
+
+
+def csr_unpack_indices_ref(offsets, block_counts):
+    """Absolute int32 columns from the packed ``csr_q`` indices: slot s
+    lies in the first block whose cumulative count exceeds s; padding
+    slots resolve past the last block and are clamped into it
+    (``repro/kernels/ref.py:206-222``)."""
+    K, cap = offsets.shape
+    nblk = block_counts.shape[1]
+    cum = torch.cumsum(block_counts.to(torch.int32), dim=1,
+                       dtype=torch.int32)
+    slots = torch.arange(cap, dtype=torch.int32,
+                         device=offsets.device).expand(K, cap).contiguous()
+    blk = torch.clamp(torch.searchsorted(cum, slots, right=True),
+                      max=nblk - 1)
+    return (blk * BLK + offsets.to(torch.int64)).to(torch.int32)
+
+
 def staleness_agg_ref(deltas, weights):
     """Paper Eq. 10 inner sum: ``out[n] = sum_k w_k * d[k, n]`` in float32,
     accumulated over k in order (the CUDA kernel's order).

@@ -100,11 +100,11 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize("override", [
-    {"engine": "sharded"}, {"wire_format": "csr_q"},
-    {"wire_format": "csr_q", "engine": "batched"},
+    {"engine": "sharded"}, {"client_store": "paged", "error_feedback": True},
+    {"wire_format": "csr_q", "chunk_size": 64},
     {"base_store": "dense"}, {"client_store": "paged"},
-    {"error_feedback": True}, {"round_deadline": 700.0}, {"chunk_size": 64},
-    {"checkpoint_dir": "ckpt"}, {"model": "qwen2-1.5b"}])
+    {"layer_keep_frac": {"conv": 0.5}}, {"round_deadline": 700.0},
+    {"chunk_size": 64}, {"checkpoint_dir": "ckpt"}, {"model": "qwen2-1.5b"}])
 def test_outside_the_slice_raises(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FedS3ATrainer(make_dataset("basic", scale=0.0015),
