@@ -10,7 +10,7 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
 2. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc,
    one process per source, all started together;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the six paths of phase 5 give it and at ragged edges, and time
+   shapes the paths of phases 5 and 6 give it and at ragged edges, and time
    kernel, plain version and (where one exists) the single PyTorch call
    computing the same function, with CUDA events (median over repeats,
    L2 flushed before each repeat of the memory-bound kernels);
@@ -32,8 +32,14 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    than their exact count a round; then run one more round of each path
    under ``torch.profiler`` and print the device's busy share and its
    heaviest kernels;
-6. print one ``{"kernels": [...]}`` line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+6. serve qwen2-1.5b at full width (random weights, bf16): 8 requests
+   of 512-2048 tokens, bucket 2048, 32 new tokens, through
+   ``serve_batch`` with the flash kernel, the counters showing exactly
+   one ``flash_attention`` launch per layer per call; the prefill's last
+   logits with the kernel against the plain attention on the card, and a
+   2-layer float32 model of the same width on the card against the CPU;
+7. print one ``{"kernels": [...], "paths": ..., "serve": ...}`` line,
+   then the result line ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
 port's sources are missing. It imports nothing from the JAX package.
@@ -52,6 +58,7 @@ from types import SimpleNamespace
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor-core rate, dense
 THETA = 0.95
 N_FULL = 5_213_449            # paper CNN parameter count
 CAP_FULL = 2_606_725          # min(N, ceil(2.5 * 0.2 * N))
@@ -67,11 +74,12 @@ def check(ok, msg):
         raise AssertionError(msg)
 
 
-def bound_ms(nbytes, nops):
+def bound_ms(nbytes, nops, ops_per_s=F32_OPS_PER_S):
     """Least time for the work: the larger of bytes over the memory rate and
-    operations over the float32 rate, with which of the two bounds it."""
+    operations over the rate for their type (float32 unless given), with
+    which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -346,6 +354,107 @@ def check_csr_quant(torch, ops, ref, comm_mod, dev, gen, flush):
             "max_abs_err": 0.0, **shapes[0], "other_shapes": shapes[1:]}
 
 
+def _bf16_ulps_apart(torch, a, b, atol=0.0):
+    """Largest distance of ``a`` from ``b`` (bf16 tensors), less ``atol``,
+    in units of one bf16 ulp at the larger magnitude of each pair."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(a), e - 8)       # 8 significant bits
+    return float(((a - b).abs() - atol).clamp(min=0.0).div(ulp).max())
+
+
+def _attention_work(B, S, Hq, Hkv, hd, elem, window):
+    """(bytes, flops) of one attention call: q, k, v read once and out
+    written once; 4 hd flops (q.k and p.v) for each visible (query, key)
+    pair, which the causal mask and the window decide."""
+    pairs = sum(min(qp + 1, window or qp + 1) for qp in range(S))
+    return elem * B * S * (2 * Hq + 2 * Hkv) * hd, 4 * B * Hq * hd * pairs
+
+
+def check_flash_attention(torch, ops, ref, dev, gen, s_serve):
+    """The CUDA flash kernel against ``flash_attention_plain`` on the card:
+    float32 to atol / rtol 2e-5 (the reference's own tolerance); bf16 at
+    most one bf16 ulp apart beyond that float32 atol: the two compute in
+    float32 and sum in other orders, so an output can round to the
+    neighbouring bf16 value, and an output near zero (a sum that cancels)
+    carries a float32 rounding error of ~1e-7, which spans many bf16 ulps
+    of its own magnitude (the raw distance in ulps is printed too).
+    Shapes: the serve prefill's (8, S, 12 / 2 heads, hd 128) in bf16 and
+    float32, ragged lengths, a window, the reduced config's hd 64 with
+    4 / 2 heads, one KV head per query head, and a non-causal call."""
+    import torch.nn.functional as F
+    cases = [  # (label, B, S, Hq, Hkv, hd, dtype, window, causal)
+        ("serve prefill bf16", 8, s_serve, 12, 2, 128, torch.bfloat16, None,
+         True),
+        ("serve prefill f32", 8, s_serve, 12, 2, 128, torch.float32, None,
+         True),
+        ("ragged S = 1", 2, 1, 12, 2, 128, torch.float32, None, True),
+        ("ragged S = 127", 2, 127, 12, 2, 128, torch.float32, None, True),
+        ("ragged S = 1000", 2, 1000, 12, 2, 128, torch.bfloat16, None, True),
+        ("ragged S = 1000 f32", 2, 1000, 12, 2, 128, torch.float32, None,
+         True),
+        ("window 96, S = 384", 2, 384, 12, 2, 128, torch.float32, 96, True),
+        ("window 96, S = 384 bf16", 2, 384, 12, 2, 128, torch.bfloat16, 96,
+         True),
+        ("reduced hd 64, 4 / 2 heads", 2, 256, 4, 2, 64, torch.bfloat16,
+         None, True),
+        ("reduced hd 64 f32", 2, 256, 4, 2, 64, torch.float32, None, True),
+        ("G = 1", 2, 256, 4, 4, 128, torch.float32, None, True),
+        ("non-causal S = 1000", 1, 1000, 4, 2, 128, torch.float32, None,
+         False),
+    ]
+    worst, tensors = 0.0, {}
+    for label, B, S, Hq, Hkv, hd, dt, window, causal in cases:
+        q = torch.randn((B, S, Hq, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dt)
+        got = ops.flash_attention(q, k, v, window=window, causal=causal)
+        want = ref.flash_attention_plain(q, k, v, window=window,
+                                         causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        if dt == torch.float32:
+            ok = torch.allclose(got, want, atol=2e-5, rtol=2e-5)
+            log(f"  flash_attention {label}: ({B}, {S}, {Hq}/{Hkv}, {hd}), "
+                f"max |kernel - plain| = {err:.3g}, allclose 2e-5: {ok}")
+        else:
+            ulps = _bf16_ulps_apart(torch, got, want, atol=2e-5)
+            ok = ulps <= 1.0
+            log(f"  flash_attention {label}: ({B}, {S}, {Hq}/{Hkv}, {hd}), "
+                f"max |kernel - plain| = {err:.3g}, {ulps:.3g} bf16 ulp "
+                f"beyond atol 2e-5 ({_bf16_ulps_apart(torch, got, want):.3g}"
+                f" without)")
+        check(ok and bool(torch.isfinite(got).all()),
+              f"flash_attention {label}: kernel differs from plain")
+        if label.startswith(("serve", "reduced hd 64,")):
+            tensors[label] = (q, k, v)
+    shapes = []
+    for label, (q, k, v) in tensors.items():
+        B, S, Hq, hd = q.shape
+        Hkv = k.shape[2]
+        bf16 = q.dtype == torch.bfloat16
+        nbytes, flops = _attention_work(B, S, Hq, Hkv, hd, q.element_size(),
+                                        None)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        reps = 5 if S > 1024 else 20
+        shape = {"shape": [B, S, Hq, Hkv, hd], "dtype": str(q.dtype),
+                 "bytes": nbytes, "flops": flops, **_timed(
+            torch, lambda: ops.flash_attention(q, k, v),
+            lambda: ref.flash_attention_plain(q, k, v), nbytes, flops,
+            reps=reps, library=lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))}
+        if bf16:   # the bound at the type's rate; beside it the float32 rule
+            shape["bound_ms"], shape["bound_by"] = bound_ms(
+                nbytes, flops, BF16_OPS_PER_S)
+            shape["bound_f32_ms"] = bound_ms(nbytes, flops)[0]
+        shapes.append(shape)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:65",
+            "max_abs_err": worst, **shapes[0], "other_shapes": shapes[1:]}
+
+
 # -- phase 4: the trainer on the card against itself on the CPU -----------
 def _param_diff(np, a, b):
     """(max |a - b|, elements outside atol 1e-4 + rtol 1e-3 of b, total)."""
@@ -589,16 +698,17 @@ def drive_path(torch, port, ops, engine, wire, ef, rounds=3):
                           "accuracy": m["accuracy"], "aco": out["aco"]}
 
 
-def profile_round(torch, tr):
-    """One more round under torch.profiler: the device's busy share of the
-    round (kernel time over wall time, the profiler's own host overhead
-    included in the wall) and the kernels that take the most device time."""
+def profile_round(torch, fn, what="round"):
+    """``fn()`` (one more round, or one serving step) under torch.profiler:
+    the device's busy share of it (kernel time over wall time, the
+    profiler's own host overhead included in the wall) and the kernels
+    that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tr.run_round()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
@@ -610,13 +720,188 @@ def profile_round(torch, tr):
     if not rows:
         log("  device time not measured: torch.profiler recorded no kernel")
         return {"wall_ms": wall_ms, "busy_ms": None, "launches": None}
-    log(f"  profiled round: wall {wall_ms:.1f} ms, device busy "
+    log(f"  profiled {what}: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
         f"{sum(r[1] for r in rows)} kernel launches")
     for ms, count, key in rows[:10]:
         log(f"    {ms:8.3f} ms {count:6d}x  {key[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
-            "launches": sum(r[1] for r in rows)}
+            "launches": sum(r[1] for r in rows),
+            "top": [{"ms": ms, "count": count, "kernel": key[:90]}
+                    for ms, count, key in rows[:5]]}
+
+
+# -- phase 6: serving qwen2-1.5b at full width -----------------------------
+SERVE_ARCH = "qwen2-1.5b"
+SERVE_PARAMS = 1_543_655_424  # param_count() of the full-width config
+SERVE_REQUESTS, SERVE_BUCKET, SERVE_NEW = 8, 2048, 32
+# ref against pallas in bf16: the reference's attention rounds its logits
+# to bf16 before the softmax, the flash kernel keeps them in float32, so
+# the last logits differ by bf16 rounding carried through the layers. On
+# the CPU (tests/test_torch_lm.py::test_ref_and_pallas_differ_by_rounding)
+# max |diff| / max |logits| is 1.2% at 2 layers and 2.5% at 28 (reduced
+# width), 1.3% at full width and 2 layers; the bound is 4x the deepest.
+REF_VS_PALLAS_REL = 0.10
+F32_CARD_VS_CPU = 1e-4        # last logits, float32, 2 layers at full width
+
+
+def serve_prompts(np, vocab):
+    """SERVE_REQUESTS prompts of 512-2048 random tokens, from numpy's
+    default_rng(0)."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(512, SERVE_BUCKET + 1, size=SERVE_REQUESTS)
+    return [rng.integers(0, vocab, size=int(n)).tolist() for n in lens]
+
+
+def _last_logits(torch, port, cfg, params, toks, impl):
+    with torch.inference_mode():
+        w = port.lm.compute_params(cfg, params)
+        batch = {"tokens": torch.as_tensor(toks, device=params["embed"].device)}
+        last, _ = port.make_prefill_step(cfg, toks.shape[1], impl=impl)(
+            w, batch)
+    return last.float().cpu()
+
+
+def serve_full_width(torch, np, port, ops, smi):
+    """Serve SERVE_REQUESTS prompts on the full-width qwen2-1.5b (random
+    weights from a seeded device generator, bf16 compute) through
+    ``serve_batch`` with the flash kernel: once to warm up, once timed,
+    each with the launch counters reset just before and read just after:
+    one prefill and SERVE_NEW - 1 decode steps must launch
+    ``flash_attention`` exactly num_layers times (so no decode step
+    launches it) and no other kernel. Then the prefill's last logits with
+    ``impl="pallas"`` against ``impl="ref"`` on the card, and a 2-layer
+    float32 model of the same width served on the card against the CPU."""
+    import dataclasses
+    cfg = port.get_config(SERVE_ARCH)
+    check(cfg.param_count() == SERVE_PARAMS,
+          f"{SERVE_ARCH}: param_count {cfg.param_count()}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = port.lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in _leaves(params))
+    # the analytic count leaves out the QKV biases and the final norm, as
+    # the reference's does
+    extra = cfg.num_layers * (cfg.num_heads + 2 * cfg.num_kv_heads) * \
+        cfg.resolved_head_dim + cfg.d_model
+    check(n == SERVE_PARAMS + extra, f"{SERVE_ARCH} has {n} parameters")
+    prompts = serve_prompts(np, cfg.vocab_size)
+    lens = [len(p) for p in prompts]
+    log(f"  {SERVE_ARCH}: {n} parameters (float32, bf16 compute), init "
+        f"{init_s:.2f} s; {SERVE_REQUESTS} prompts of {lens} tokens, bucket "
+        f"{SERVE_BUCKET}, max_new {SERVE_NEW}")
+    res = None
+    for run in ("warm-up", "timed"):
+        timings = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        toks = port.serve_batch(cfg, params, prompts, max_new=SERVE_NEW,
+                                bucket=SERVE_BUCKET, impl="pallas",
+                                timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check(toks.shape == (SERVE_REQUESTS, SERVE_NEW)
+              and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+              f"serve: bad continuations {toks.shape}")
+        check(launches["flash_attention"] == cfg.num_layers,
+              f"serve: flash_attention launched "
+              f"{launches['flash_attention']} times in one serve_batch "
+              f"(one prefill of {cfg.num_layers} layers and {SERVE_NEW - 1} "
+              f"decode steps), expected {cfg.num_layers}")
+        check(all(c == 0 for kname, c in launches.items()
+                  if kname != "flash_attention"),
+              f"serve: kernels off the path launched: {launches}")
+        new_tokens = SERVE_REQUESTS * SERVE_NEW
+        res = {"arch": SERVE_ARCH, "params": n, "requests": SERVE_REQUESTS,
+               "bucket": timings["bucket"], "prompt_lens": lens,
+               "max_new": SERVE_NEW, "impl": "pallas",
+               "cast_s": timings["cast_s"], "prefill_s": timings["prefill_s"],
+               "decode_s_per_token": timings["decode_s"] / (SERVE_NEW - 1),
+               "wall_s": wall, "tokens_per_s": new_tokens / wall,
+               "peak_mem_bytes": peak, "launches": launches, "gpu": smi}
+        log(f"  serve {run} ({smi}): prefill {res['prefill_s']:.4f} s, "
+            f"decode {res['decode_s_per_token'] * 1e3:.3f} ms/token step, "
+            f"cast {res['cast_s']:.4f} s, wall {wall:.4f} s, "
+            f"{res['tokens_per_s']:.1f} new tokens/s, peak memory "
+            f"{peak / 2**30:.2f} GiB; launches {launches}")
+
+    from repro_torch.launch.serve import left_pad
+    toks = left_pad(prompts, SERVE_BUCKET)
+    res.update(_profile_serving(torch, port, cfg, params, toks))
+    lp = _last_logits(torch, port, cfg, params, toks, "pallas")
+    lr = _last_logits(torch, port, cfg, params, toks, "ref")
+    diff, mag = float((lp - lr).abs().max()), float(lr.abs().max())
+    agree = int((lp.argmax(-1) == lr.argmax(-1)).sum())
+    log(f"  prefill last logits, pallas vs ref on the card: max |diff| "
+        f"{diff:.4g} on max |logits| {mag:.4g} ({100 * diff / mag:.2f}%, "
+        f"bound {100 * REF_VS_PALLAS_REL:.0f}%), first token equal in "
+        f"{agree} of {SERVE_REQUESTS}")
+    check(diff <= REF_VS_PALLAS_REL * mag, "serve: pallas and ref prefill "
+          f"logits differ by {diff} on {mag}")
+    res["ref_vs_pallas"] = {"max_abs_diff": diff, "max_abs_logit": mag,
+                            "first_token_equal": agree}
+    del params
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    p_cpu = port.lm.init_params(cfg2, torch.Generator().manual_seed(1))
+    p_gpu = port.tree_from_numpy(port.tree_to_numpy(p_cpu), "cuda")
+    out, last = {}, {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        t0 = time.perf_counter()
+        last[dev] = _last_logits(torch, port, cfg2, p, toks, "pallas")
+        out[dev] = port.serve_batch(cfg2, p, prompts, max_new=SERVE_NEW,
+                                    bucket=SERVE_BUCKET, impl="pallas")
+        log(f"  2-layer float32 model, full width, on {dev}: "
+            f"{time.perf_counter() - t0:.2f} s")
+    diff = float((last["cuda"] - last["cpu"]).abs().max())
+    same = bool(np.array_equal(out["cuda"], out["cpu"]))
+    log(f"  2-layer float32, card vs CPU: last logits max |diff| {diff:.3g} "
+        f"(bound {F32_CARD_VS_CPU:g}), continuations equal {same}")
+    check(diff <= F32_CARD_VS_CPU and same,
+          "serve: the float32 model differs between card and CPU")
+    res["f32_card_vs_cpu"] = {"max_abs_diff": diff, "tokens_equal": same}
+    return res
+
+
+def _profile_serving(torch, port, cfg, params, toks):
+    """One prefill (with the flash kernel) and one decode step of the
+    served batch under torch.profiler."""
+    out = {}
+    with torch.inference_mode():
+        w = port.lm.compute_params(cfg, params)
+        K = toks.shape[1]
+        batch = {"tokens": torch.as_tensor(toks, device="cuda")}
+        prefill = port.make_prefill_step(cfg, K + SERVE_NEW, impl="pallas")
+        step = port.make_serve_step(cfg)
+        last, cache = prefill(w, batch)
+        tok = last.argmax(dim=-1)
+        state = {}
+
+        def one_prefill():
+            state["cache"] = prefill(w, batch)[1]
+
+        def one_step():
+            step(w, state["cache"], tok, K)
+        out["profiled_prefill"] = profile_round(torch, one_prefill,
+                                                "prefill")
+        step(w, cache, tok, K)                            # warm the step
+        out["profiled_decode_step"] = profile_round(torch, one_step,
+                                                    "decode step")
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def main():
@@ -632,15 +917,24 @@ def main():
     from repro_torch.core import sparse_comm as comm_mod
     from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
     from repro_torch.data import make_dataset
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import lm
     from repro_torch.models.cnn import cnn_param_count, init_cnn
-    from repro_torch.weights import params_to_numpy
+    from repro_torch.training.steps import make_prefill_step, make_serve_step
+    from repro_torch.weights import (params_to_numpy, tree_from_numpy,
+                                     tree_to_numpy)
+    import numpy as np
 
     port = SimpleNamespace(   # the entry points the phases drive
         CNNConfig=CNNConfig, FedS3AConfig=FedS3AConfig,
         FedS3ATrainer=FedS3ATrainer, make_dataset=make_dataset,
         cnn_param_count=cnn_param_count, init_cnn=init_cnn,
-        params_to_numpy=params_to_numpy)
+        params_to_numpy=params_to_numpy, get_config=get_config, lm=lm,
+        serve_batch=serve_batch, make_prefill_step=make_prefill_step,
+        make_serve_step=make_serve_step,
+        tree_from_numpy=tree_from_numpy, tree_to_numpy=tree_to_numpy)
 
     t_start = time.perf_counter()
     log("phase 1: card")
@@ -677,6 +971,10 @@ def main():
                check_sparse_delta(torch, ops, ref, dev, gen, flush),
                check_csr_quant(torch, ops, ref, comm_mod, dev, gen, flush)]
     del scratch
+    s_serve = max(len(p) for p in serve_prompts(
+        np, get_config(SERVE_ARCH).vocab_size))
+    kernels.append(check_flash_attention(torch, ops, ref, dev, gen, s_serve))
+    torch.cuda.empty_cache()
     for k in kernels:
         for sh in [k] + k["other_shapes"]:
             log(f"  {k['name']} {sh['shape']}: kernel {sh['ms']:.4f} ms, "
@@ -695,21 +993,28 @@ def main():
     for engine, wire, ef in PATHS:
         tr, launches, res = drive_path(torch, port, ops, engine, wire, ef)
         res["launches"] = launches
-        res["profiled_round"] = profile_round(torch, tr)
+        res["profiled_round"] = profile_round(torch, tr.run_round)
         paths[path_name(engine, wire, ef)] = res
         del tr
 
+    log(f"phase 6: serving {SERVE_ARCH} at full width ({SERVE_REQUESTS} "
+        f"requests, bucket {SERVE_BUCKET}, max_new {SERVE_NEW})")
+    serve = serve_full_width(torch, np, port, ops, smi)
+    paths["serve"] = {"launches": serve["launches"]}
+
     # launches: the default path's count, or for a kernel off it, that of
     # the first batched path that runs it (sparse_delta: dense_masked;
-    # csr_quant: csr_q + EF)
+    # csr_quant: csr_q + EF; flash_attention: serve)
     for k in kernels:
         by_path = {p: r["launches"][k["name"]] for p, r in paths.items()}
         k["launches"] = by_path["batched+csr"] or \
-            by_path["batched+dense_masked"] or by_path["batched+csr_q+ef"]
+            by_path["batched+dense_masked"] or \
+            by_path["batched+csr_q+ef"] or by_path["serve"]
         k["launches_by_path"] = by_path
+    del paths["serve"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "paths": paths, "gpu": smi}),
-          flush=True)
+    print(json.dumps({"kernels": kernels, "paths": paths, "serve": serve,
+                      "gpu": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -113,7 +113,8 @@ def _check_slice(cfg):
     ROADMAP.md queue ("Still to port") that brings it."""
     later = {
         "engine": (cfg.engine == "sharded", "4 (sharded engine)"),
-        "model": (cfg.model is not None, "3 (LM model zoo)"),
+        "model": (cfg.model is not None,
+                  "3b (the FL language-model path)"),
         "base_store": (cfg.base_store != "versioned",
                        "4 (legacy dense base store)"),
         "client_store": (cfg.client_store != "resident",

@@ -20,7 +20,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 SOURCES = ("masked_pseudo_ce", "csr_compact", "staleness_agg",
-           "sparse_delta", "csr_quant")
+           "sparse_delta", "csr_quant", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,9 @@ SIGNATURES = {
                             (_P, _P, _P, _P, _I, _LL, _I, _P)),
     "csr_quant_launch": ("csr_quant", (_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _P)),
+    "flash_attention_launch": ("flash_attention",
+                               (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _F, _P)),
 }
 
 _loaded = {}    # launch function name -> ctypes function, once built

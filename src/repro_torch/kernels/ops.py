@@ -1,5 +1,5 @@
 """Wrappers around the port's CUDA kernels. Port of
-``repro/kernels/ops.py:39-118``.
+``repro/kernels/ops.py:29-118``.
 
 Each wrapper checks its inputs, then picks by the tensor's device: a CPU
 tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
@@ -10,14 +10,18 @@ count), so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
 LAUNCHES = {"masked_pseudo_ce": 0, "csr_compact": 0, "staleness_agg": 0,
-            "sparse_delta": 0, "csr_quant": 0}
+            "sparse_delta": 0, "csr_quant": 0, "flash_attention": 0}
 Q_DTYPES = {"int8": torch.int8, "fp16": torch.float16}
+FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # -> the kernel's bf16 flag
+FLASH_HEAD_DIMS = (64, 128)
 
 
 def reset_launches():
@@ -234,4 +238,56 @@ def staleness_agg(deltas, weights):
         _launch("staleness_agg_launch", deltas.data_ptr(),
                 weights.data_ptr(), out.data_ptr(), K, N, _stream(deltas))
         LAUNCHES["staleness_agg"] += 1
+    return out
+
+
+def flash_attention(q, k, v, *, window=None, causal=True):
+    """Causal (optionally sliding-window) attention, the TPU flash kernel's
+    function: q (B, S, Hq, hd), k / v (B, S, Hkv, hd) with Hq a multiple of
+    Hkv (query head h reads KV head h // (Hq / Hkv), read in place), all
+    bf16 or all float32 -> (B, S, Hq, hd) in q's dtype, computed in
+    float32. ``window``: keys ``kp > qp - window`` only (causal only).
+    The kernel takes hd in ``FLASH_HEAD_DIMS``."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D (B, S, H, hd), got shape "
+                             f"{tuple(t.shape)}")
+    if q.dtype not in FLASH_DTYPES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype of "
+                        f"{tuple(FLASH_DTYPES)}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    if v.shape != k.shape or k.shape[:2] != (B, S) or k.shape[3] != hd:
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"{Hq} query heads are not a multiple of {Hkv} KV "
+                         f"heads")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or positive, got {window}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if not _same_device(q, k, v):
+        return ref.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head_dim must be one of {FLASH_HEAD_DIMS}, got "
+                         f"{hd}")
+    if B * Hq > 65535:
+        raise ValueError(f"at most 65535 (batch, head) pairs per launch, "
+                         f"got {B * Hq}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must start on a 16-byte boundary")
+    out = torch.empty_like(q)
+    if B and S:
+        # a window of S or more masks nothing more than causality does
+        win = 0 if window is None or not causal else min(int(window), S)
+        _launch("flash_attention_launch", q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, hd,
+                FLASH_DTYPES[q.dtype], int(causal), win,
+                1.0 / math.sqrt(hd), _stream(q))
+        LAUNCHES["flash_attention"] += 1
     return out

@@ -6,6 +6,8 @@ The wrappers in ``ops.py`` take these for tensors on the CPU, and
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -262,3 +264,65 @@ def staleness_agg_ref(deltas, weights):
     for k in range(deltas.shape[0]):
         out = out + w[k] * deltas[k].to(torch.float32)
     return out
+
+
+def attention_mask(S, window, device):
+    """(S, S) bool, True where query row qp may see key kp: ``kp <= qp``
+    and, with a window, ``kp > qp - window``."""
+    pos = torch.arange(S, device=device)
+    ok = pos[None, :] <= pos[:, None]
+    if window is not None:
+        ok &= pos[None, :] > (pos[:, None] - window)
+    return ok
+
+
+def _gqa_logits(q, k):
+    """q (B, S, Hq, hd), k (B, S, Hkv, hd) -> (B, Hq, S, S) in q's dtype;
+    query head h reads KV head h // (Hq / Hkv)."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, hd)
+    return torch.einsum("bqhgd,bkhd->bhgqk", qg, k).reshape(B, Hq, S, -1)
+
+
+def _gqa_values(w, v):
+    """w (B, Hq, S, S), v (B, S, Hkv, hd) -> (B, S, Hq, hd)."""
+    B, Hq, S, _ = w.shape
+    Hkv, hd = v.shape[2], v.shape[3]
+    wg = w.reshape(B, Hkv, Hq // Hkv, S, -1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", wg, v).reshape(B, S, Hq, hd)
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=None):
+    """What the TPU flash kernel computes
+    (``repro/kernels/flash_attention.py:25-62``), with GQA read in place:
+    q (B, S, Hq, hd), k / v (B, S, Hkv, hd) in bf16 or f32 -> (B, S, Hq, hd)
+    in q's dtype. In float32: ``s = (q . k) * (1 / sqrt(hd))``, masked
+    (causal, and the window when given) to -1e30, ``p = exp(s - max)``,
+    ``out = (p @ v) / max(sum p, 1e-30)``."""
+    hd = q.shape[-1]
+    s = _gqa_logits(q.float(), k.float()) * (1.0 / math.sqrt(hd))
+    if causal:
+        ok = attention_mask(q.shape[1], window, q.device)
+        s = torch.where(ok, s, torch.full((), -1e30, device=q.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1)                                     # (B, Hq, S)
+    out = _gqa_values(p, v.float())
+    return (out / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+            ).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None):
+    """Twin of the reference's jnp oracle (``repro/kernels/ref.py:10``):
+    the logits come out of the product in the inputs' dtype (rounded
+    there) and are divided by sqrt(hd) in float32; the softmax weights are
+    cast to v's dtype before the second product. k / v may carry fewer
+    heads than q (GQA, head h reads KV head h // (Hq / Hkv))."""
+    hd = q.shape[-1]
+    logits = _gqa_logits(q, k).float() / math.sqrt(hd)
+    if causal:
+        ok = attention_mask(q.shape[1], window, q.device)
+        logits = torch.where(ok, logits,
+                             torch.full((), -1e30, device=q.device))
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return _gqa_values(w, v)

@@ -1,1 +1,2 @@
-"""Models of the port (the paper CNN only, for now)."""
+"""Models of the port: the paper CNN (``cnn``) and the dense decoders of
+the language-model zoo (``layers``, ``blocks``, ``lm``)."""

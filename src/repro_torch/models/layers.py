@@ -1,0 +1,224 @@
+"""Dense layers of the language models: RMSNorm, RoPE, GQA attention (with
+the sliding window, and one-token decode against a KV cache) and the
+SwiGLU / GELU MLP. Port of the dense subset of ``repro/models/layers.py``.
+
+Convention (the reference's): every layer is a pair of functions
+  ``init_<layer>(cfg, gen) -> params``  (dict of tensors in the param
+  dtype, drawn from the ``torch.Generator`` ``gen`` on its device)
+  ``<layer>(cfg, params, x, ...) -> y``  (computed in ``cfg.dtype``)
+Weights are cast to the compute dtype where they are used, as the
+reference casts them; a weight already in that dtype is used as it is.
+
+Attention takes ``impl="ref"`` (the reference's ``_sdpa``, plain
+PyTorch) or ``impl="pallas"``, the reference's name for its flash
+kernel, which here launches the port's CUDA ``flash_attention`` on the
+card (``kernels/ops.py``). MLA, MoE, mamba, xLSTM and cross-attention are
+not ported: they come with ROADMAP.md queue 3b.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+LATER = "ROADMAP.md 'Still to port' queue 3b"
+IMPLS = ("ref", "pallas")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def cdtype(cfg):
+    return DTYPES[cfg.dtype]
+
+
+def pdtype(cfg):
+    return DTYPES[cfg.param_dtype]
+
+
+def _dense_init(gen, shape, dtype, scale=None):
+    fan_in = shape[0] if len(shape) > 1 else 1
+    scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale
+            ).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+def init_rmsnorm(cfg, gen, dim=None):
+    dim = dim or cfg.d_model
+    return {"scale": torch.ones((dim,), dtype=pdtype(cfg), device=gen.device)}
+
+
+def rmsnorm(cfg, params, x):
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + cfg.norm_eps)
+    return (x * params["scale"].float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(cfg, dim, device=None):
+    half = dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=device) / half
+    return 1.0 / (cfg.rope_theta ** exps)          # (half,)
+
+
+def apply_rope(cfg, x, positions, dim=None):
+    """x: (..., S, H, hd) with positions broadcastable to (..., S)."""
+    dim = dim or x.shape[-1]
+    inv = rope_freqs(cfg, dim, x.device)
+    angles = positions[..., None].float() * inv     # (..., S, half)
+    sin = torch.sin(angles)[..., None, :]           # broadcast over heads
+    cos = torch.cos(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+def init_attention(cfg, gen):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    pdt, dev = pdtype(cfg), gen.device
+    p = {
+        "wq": _dense_init(gen, (d, nq * hd), pdt),
+        "wk": _dense_init(gen, (d, nkv * hd), pdt),
+        "wv": _dense_init(gen, (d, nkv * hd), pdt),
+        "wo": _dense_init(gen, (nq * hd, d), pdt),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((nq * hd,), dtype=pdt, device=dev)
+        p["bk"] = torch.zeros((nkv * hd,), dtype=pdt, device=dev)
+        p["bv"] = torch.zeros((nkv * hd,), dtype=pdt, device=dev)
+    return p
+
+
+def _causal_mask(q_pos, k_pos, window):
+    """(..., Sq, Sk) boolean mask. True = attend."""
+    m = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        m &= k_pos[..., None, :] > (q_pos[..., :, None] - window)
+    return m
+
+
+def _sdpa(q, k, v, mask, scale):
+    """q: (B,Sq,Hq,hd), k/v: (B,Sk,Hkv,hd_v) with Hq = G*Hkv. The logits
+    come out of the product in the inputs' dtype, as in the reference."""
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    hd_v = v.shape[3]
+    q = q.reshape(B, Sq, Hkv, Hq // Hkv, hd)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
+    if mask is not None:
+        logits = torch.where(mask[:, None, None], logits, -1e30)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+    return out.reshape(B, Sq, Hq, hd_v)
+
+
+def _check_impl(impl):
+    if impl == "flash":
+        raise NotImplementedError(
+            "impl='flash' (flash_attention_xla with its custom VJP, the "
+            f"training path) is not ported; it comes with {LATER}")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def _project(cfg, params, x, dt):
+    q = x @ params["wq"].to(dt)
+    k = x @ params["wk"].to(dt)
+    v = x @ params["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    return q, k, v
+
+
+def attention(cfg, params, x, positions, *, window=None, causal=True,
+              impl="ref"):
+    """Full (or sliding-window) causal self-attention. ``impl="pallas"``
+    runs the flash kernel (``ops.flash_attention``), which takes the
+    positions to be 0..S-1, as the reference's does."""
+    _check_impl(impl)
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    dt = cdtype(cfg)
+    q, k, v = _project(cfg, params, x, dt)
+    q = apply_rope(cfg, q.reshape(B, S, nq, hd), positions)
+    k = apply_rope(cfg, k.reshape(B, S, nkv, hd), positions)
+    v = v.reshape(B, S, nkv, hd)
+    if impl == "pallas" and causal:
+        out = ops.flash_attention(q, k, v, window=window)
+    else:
+        mask = _causal_mask(positions, positions, window) if causal else None
+        out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(hd))
+    return out.reshape(B, S, nq * hd) @ params["wo"].to(dt)
+
+
+def attention_decode(cfg, params, x, cache_k, cache_v, index, *,
+                     ring=False):
+    """One-token decode. x: (B, d). cache_k/v: (B, S, Hkv, hd); ``index``
+    the token's position (an int). The new k / v are written into the
+    caches in place (the reference returns updated copies), at ``index``,
+    or at ``index % S`` with ``ring`` (a sliding-window ring buffer, fully
+    valid once it has wrapped). Returns (out (B, d), cache_k, cache_v)."""
+    B, _ = x.shape
+    S = cache_k.shape[1]
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    dt = cdtype(cfg)
+    q, k, v = _project(cfg, params, x, dt)
+    pos = torch.full((B, 1), index, dtype=torch.long, device=x.device)
+    q = apply_rope(cfg, q.reshape(B, 1, nq, hd), pos)
+    k = apply_rope(cfg, k.reshape(B, 1, nkv, hd), pos)
+    v = v.reshape(B, 1, nkv, hd)
+
+    slot = index % S if ring else index
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+
+    kpos = torch.arange(S, device=x.device)
+    valid = (kpos <= slot) | (index >= S) if ring else kpos <= index
+    mask = valid.expand(B, 1, S)
+    out = _sdpa(q, cache_k.to(dt), cache_v.to(dt), mask, 1.0 / math.sqrt(hd))
+    out = out.reshape(B, nq * hd) @ params["wo"].to(dt)
+    return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GELU)
+# ---------------------------------------------------------------------------
+def init_mlp(cfg, gen, d_ff=None):
+    d = cfg.d_model
+    ff = d_ff or cfg.d_ff
+    p = {
+        "w_up": _dense_init(gen, (d, ff), pdtype(cfg)),
+        "w_down": _dense_init(gen, (ff, d), pdtype(cfg)),
+    }
+    if cfg.gated_mlp:
+        p["w_gate"] = _dense_init(gen, (d, ff), pdtype(cfg))
+    return p
+
+
+def mlp(cfg, params, x):
+    dt = cdtype(cfg)
+    up = x @ params["w_up"].to(dt)
+    if cfg.gated_mlp:
+        gate = x @ params["w_gate"].to(dt)
+        # jax.nn.silu as the reference computes it: x * (1 / (1 + exp(-x))),
+        # each op rounded to the compute dtype
+        up = gate * (1.0 / (1.0 + torch.exp(-gate))) * up
+    else:
+        up = F.gelu(up, approximate="tanh")        # jax.nn.gelu's default
+    return up @ params["w_down"].to(dt)
