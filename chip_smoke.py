@@ -13,7 +13,9 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    shapes the paths of phases 5 and 6 give it and at ragged edges, and time
    kernel, plain version and (where one exists) the single PyTorch call
    computing the same function, with CUDA events (median over repeats,
-   L2 flushed before each repeat of the memory-bound kernels);
+   L2 flushed before each repeat of the memory-bound kernels); print the
+   bf16 flash kernel's ptxas report and fail if ``flash_attention.so``
+   holds no HGMMA (wgmma) instruction;
 4. run the port's sequential engine twice on the card and once on the CPU
    from the same initial weights (full-width paper CNN, dropout 0,
    2 rounds) and compare schedules, parameters, metrics and ACO; then
@@ -371,17 +373,54 @@ def _attention_work(B, S, Hq, Hkv, hd, elem, window):
     return elem * B * S * (2 * Hq + 2 * Hkv) * hd, 4 * B * Hq * hd * pairs
 
 
+def flash_build_report(build, out_dir):
+    """The bf16 tensor-core instances' ptxas report (registers, spills)
+    from this process's build log, and the count of HGMMA (wgmma)
+    instructions in the built ``flash_attention.so``; fails if there are
+    none, which would mean the bf16 path lost its tensor cores."""
+    instances, name = {}, None
+    for line in build.build_log.get("flash_attention", "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "flash_attention_wgmma" in line \
+                else None
+            if name:
+                instances[name] = {"hd": 128 if "ILi128E" in name else 64}
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            instances[name].update(stack_bytes=nums[0],
+                                   spill_store_bytes=nums[1],
+                                   spill_load_bytes=nums[2])
+        elif name and "Used" in line and "registers" in line:
+            instances[name]["registers"] = int(
+                line.split("Used")[1].split()[0])
+    cuobjdump = Path(build._nvcc()).resolve().with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(out_dir / "flash_attention.so")],
+                          capture_output=True, text=True, check=True).stdout
+    hgmma = sum(1 for line in sass.splitlines() if "HGMMA" in line)
+    for rep in instances.values():
+        log(f"  flash_attention bf16 (wgmma): {rep}")
+    if not instances:
+        log("  flash_attention: built before this process, no ptxas report")
+    log(f"  flash_attention.so: {hgmma} HGMMA instructions")
+    check(hgmma > 0, "flash_attention.so holds no HGMMA instruction: the "
+          "bf16 path does not run on the tensor cores")
+    return {"hgmma": hgmma, "ptxas_bf16": list(instances.values())}
+
+
 def check_flash_attention(torch, ops, ref, dev, gen, s_serve):
     """The CUDA flash kernel against ``flash_attention_plain`` on the card:
-    float32 to atol / rtol 2e-5 (the reference's own tolerance); bf16 at
-    most one bf16 ulp apart beyond that float32 atol: the two compute in
-    float32 and sum in other orders, so an output can round to the
-    neighbouring bf16 value, and an output near zero (a sum that cancels)
-    carries a float32 rounding error of ~1e-7, which spans many bf16 ulps
-    of its own magnitude (the raw distance in ulps is printed too).
-    Shapes: the serve prefill's (8, S, 12 / 2 heads, hd 128) in bf16 and
-    float32, ragged lengths, a window, the reduced config's hd 64 with
-    4 / 2 heads, one KV head per query head, and a non-causal call."""
+    float32 (the FFMA kernel) to atol / rtol 2e-5 (the reference's own
+    tolerance); bf16 (the wgmma kernel) at most one bf16 ulp apart beyond
+    that float32 atol: the two compute in float32 and sum in other orders,
+    so an output can round to the neighbouring bf16 value, and an output
+    near zero (a sum that cancels) carries a float32 rounding error of
+    ~1e-7, which spans many bf16 ulps of its own magnitude (the raw
+    distance in ulps is printed too). Shapes, each in both dtypes: the
+    serve prefill's (8, S, 12 / 2 heads, hd 128), ragged lengths (S = 1,
+    127, 1000), a window, the reduced config's hd 64 with 4 / 2 heads, one
+    KV head per query head, and a non-causal call."""
     import torch.nn.functional as F
     cases = [  # (label, B, S, Hq, Hkv, hd, dtype, window, causal)
         ("serve prefill bf16", 8, s_serve, 12, 2, 128, torch.bfloat16, None,
@@ -389,7 +428,10 @@ def check_flash_attention(torch, ops, ref, dev, gen, s_serve):
         ("serve prefill f32", 8, s_serve, 12, 2, 128, torch.float32, None,
          True),
         ("ragged S = 1", 2, 1, 12, 2, 128, torch.float32, None, True),
+        ("ragged S = 1 bf16", 2, 1, 12, 2, 128, torch.bfloat16, None, True),
         ("ragged S = 127", 2, 127, 12, 2, 128, torch.float32, None, True),
+        ("ragged S = 127 bf16", 2, 127, 12, 2, 128, torch.bfloat16, None,
+         True),
         ("ragged S = 1000", 2, 1000, 12, 2, 128, torch.bfloat16, None, True),
         ("ragged S = 1000 f32", 2, 1000, 12, 2, 128, torch.float32, None,
          True),
@@ -400,8 +442,11 @@ def check_flash_attention(torch, ops, ref, dev, gen, s_serve):
          None, True),
         ("reduced hd 64 f32", 2, 256, 4, 2, 64, torch.float32, None, True),
         ("G = 1", 2, 256, 4, 4, 128, torch.float32, None, True),
+        ("G = 1 bf16", 2, 256, 4, 4, 128, torch.bfloat16, None, True),
         ("non-causal S = 1000", 1, 1000, 4, 2, 128, torch.float32, None,
          False),
+        ("non-causal S = 1000 bf16", 1, 1000, 4, 2, 128, torch.bfloat16,
+         None, False),
     ]
     worst, tensors = 0.0, {}
     for label, B, S, Hq, Hkv, hd, dt, window, causal in cases:
@@ -974,6 +1019,7 @@ def main():
     s_serve = max(len(p) for p in serve_prompts(
         np, get_config(SERVE_ARCH).vocab_size))
     kernels.append(check_flash_attention(torch, ops, ref, dev, gen, s_serve))
+    kernels[-1].update(flash_build_report(build, out_dir))
     torch.cuda.empty_cache()
     for k in kernels:
         for sh in [k] + k["other_shapes"]:

@@ -42,6 +42,7 @@ them.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -76,6 +77,7 @@ class FedS3AConfig:
     lr: float = 1e-4                    # paper Table IV
     batch_size: int = 100
     epochs: int = 1
+    server_epochs: int = 1              # accepted, unused, as in the reference
     init_server_epochs: int = 5         # E_s warmup at r0 (Algorithm 1 l.5-6)
     threshold: float = 0.95             # pseudo-label confidence
     staleness_function: str = "exponential"
@@ -92,9 +94,17 @@ class FedS3AConfig:
     residual_frac: float = 0.25         # EF residual: top share of N kept
     base_store: str = "versioned"
     client_store: str = "resident"
+    paged_dir: object = None            # paged client store (not ported yet)
     error_feedback: bool = False
     l1: float = 1e-5                    # §IV-F L1 regularisation
+    use_kernels: bool = False           # accepted, changes nothing: a model
+                                        # on the card always launches the
+                                        # CUDA kernels, one on the CPU
+                                        # always takes their plain versions
     engine: object = None               # "sequential" | "batched" | None
+    batched: object = None              # legacy alias: True/False map to
+                                        # engine="batched"/"sequential" when
+                                        # ``engine`` is unset (deprecated)
     cnn: object = None                  # CNNConfig override (None: paper §V-B)
     model: object = None                # model-zoo config (not ported yet)
     chunk_size: int = 0
@@ -104,7 +114,10 @@ class FedS3AConfig:
     latency_jitter: float = 0.05
     traffic: object = None              # fault profile (not ported yet)
     round_deadline: object = None
+    quorum_floor: int = 1               # fewest uploads a degraded round
+                                        # takes; checked, acts only with faults
     checkpoint_dir: object = None
+    checkpoint_every: int = 0           # acts only with checkpoint_dir
     device: str = "cuda"                # port only: where the round runs
 
 
@@ -119,6 +132,7 @@ def _check_slice(cfg):
                        "4 (legacy dense base store)"),
         "client_store": (cfg.client_store != "resident",
                          "4 (paged client store)"),
+        "paged_dir": (cfg.paged_dir is not None, "4 (paged client store)"),
         "traffic": (cfg.traffic is not None or cfg.round_deadline is not None,
                     "4 (faults)"),
         "chunk_size": (bool(cfg.chunk_size) or cfg.param_layout is not None
@@ -147,10 +161,19 @@ def _resolve_device(name):
     return device
 
 
-def select_engine(engine, device, n_params):
-    """``cfg.engine`` resolved: None is batched on the card, and on the
-    CPU batched up to ``CPU_BATCHED_MAX_PARAMS`` parameters, sequential
-    above (compute-bound CPU training gains nothing from stacking)."""
+def select_engine(engine, device, n_params, batched=None):
+    """``cfg.engine`` resolved: the legacy ``batched`` True/False, when
+    set, stands for an unset engine (with a ``DeprecationWarning``, as in
+    the reference); None is batched on the card, and on the CPU batched up
+    to ``CPU_BATCHED_MAX_PARAMS`` parameters, sequential above
+    (compute-bound CPU training gains nothing from stacking)."""
+    if batched is not None:
+        warnings.warn(
+            "FedS3AConfig(batched=...) is deprecated since the engine "
+            "selector landed; use engine='batched' / engine="
+            "'sequential' instead", DeprecationWarning, stacklevel=3)
+        if engine is None:
+            engine = "batched" if batched else "sequential"
     if engine is not None:
         return engine
     if device.type == "cuda" or n_params <= CPU_BATCHED_MAX_PARAMS:
@@ -195,7 +218,8 @@ class FedS3ATrainer:
         self.M = len(data["clients"])
         self.cnn = self.cfg.cnn if self.cfg.cnn is not None else CNN_CONFIG
         self.engine = select_engine(self.cfg.engine, self.device,
-                                    cnn_param_count(self.cnn))
+                                    cnn_param_count(self.cnn),
+                                    self.cfg.batched)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(self.cfg.seed)
         # per-round seeds: participants in arrival order, then the server
@@ -227,7 +251,7 @@ class FedS3ATrainer:
         self.latencies = [paper_latency(int(s * f)) for s in sizes]
         self.scheduler = SemiAsyncScheduler(
             self.latencies, C=cfg.C, tau=cfg.tau, jitter=cfg.latency_jitter,
-            seed=cfg.seed)
+            seed=cfg.seed, quorum_floor=cfg.quorum_floor)
         self.comm = SparseComm(cfg.sparse_threshold, enabled=cfg.sparse_comm,
                                wire_format=cfg.wire_format,
                                capacity=cfg.wire_capacity,

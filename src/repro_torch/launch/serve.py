@@ -3,8 +3,9 @@
 
 Requests (prompt token lists) are left-padded into one bucket, prefilled
 once, then decoded greedily against the KV cache. The prefill's attention
-runs the CUDA flash kernel on the card (``impl="pallas"``, the default)
-or the reference's plain attention (``impl="ref"``).
+is the reference's plain attention by default (``impl="ref"``, as the
+reference's ``serve_batch`` prefills), or the CUDA flash kernel on the
+card (``impl="pallas"``; its plain version on the CPU).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -39,7 +40,7 @@ def left_pad(prompts, bucket):
     return toks
 
 
-def serve_batch(cfg, params, prompts, *, max_new, bucket, impl="pallas",
+def serve_batch(cfg, params, prompts, *, max_new, bucket, impl="ref",
                 timings=None):
     """prompts: list[list[int]] -> (B, max_new) int32 continuations, on the
     device the parameters lie on. Pad tokens (id 0, on the left) are
@@ -99,7 +100,7 @@ def main(argv=None):
     ap.add_argument("--bucket", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--attn-impl", default="pallas", choices=("ref", "pallas"))
+    ap.add_argument("--attn-impl", default="ref", choices=("ref", "pallas"))
     args = ap.parse_args(argv)
 
     device = _resolve_device(args.device)

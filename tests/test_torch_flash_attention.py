@@ -4,6 +4,8 @@ JAX package: ``flash_attention_plain`` against the Pallas kernel
 ``flash_attention_ref`` against the jnp oracle it twins. Inputs are made
 with numpy from a seed and handed to both. The CUDA kernel runs only on
 the card, where ``chip_smoke.py`` holds it against the plain version."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -138,3 +140,89 @@ def test_kernel_is_built_from_its_source():
     text = (build.CSRC / "flash_attention.cu").read_text()
     assert "flash_attention.py::flash_attention_pallas" in text
     assert all(f"case {hd}:" in text for hd in ops.FLASH_HEAD_DIMS)
+
+
+# -- the bf16 tensor-core kernel's arithmetic, emulated on the CPU ---------
+def _bf16_ulps_apart(a, b, atol=0.0):
+    """Largest distance of bf16 ``a`` from ``b``, less ``atol``, in bf16
+    ulps at the larger magnitude of each pair (chip_smoke.py's measure)."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(a), e - 8)         # 8 significant bits
+    return float(((a - b).abs() - atol).clamp(min=0.0).div(ulp).max())
+
+
+def _tensor_core_emulation(q, k, v, *, causal=True, window=None, bk=64,
+                           split=True):
+    """What the bf16 CUDA kernel does, step by step in eager PyTorch: BK-key
+    tiles in order with the online softmax in float32; q.k of the bf16
+    inputs summed in float32 (each bf16 x bf16 product is exact there);
+    p split into p_hi = bf16(p) and p_lo = bf16(p - p_hi), both products
+    with V summed in float32; l summed from the unrounded p. ``split=False``
+    rounds p to bf16 once instead."""
+    B, S, Hq, hd = q.shape
+    G = Hq // k.shape[2]
+    qf = q.float().transpose(1, 2)                        # (B, Hq, S, hd)
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    m = torch.full((B, Hq, S), -1e30)
+    l = torch.zeros((B, Hq, S))
+    o = torch.zeros((B, Hq, S, hd))
+    qp = torch.arange(S)[:, None]
+    for k0 in range(0, S, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        s = (qf @ kt.transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+        if causal:
+            kp = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            ok = kp <= qp
+            if window is not None:
+                ok = ok & (kp > qp - window)
+            s = torch.where(ok, s, torch.full((), -1e30))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        hi = p.to(torch.bfloat16).float()
+        o = o * corr[..., None] + hi @ vt
+        if split:
+            o = o + (p - hi).to(torch.bfloat16).float() @ vt
+        m = m_new
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+# ragged S (1, 127, 130, 1000), windows, hd 64 and 128, G = 1 and 6, and a
+# non-causal call
+EMULATED = [  # (B, S, Hq, Hkv, hd, window, causal)
+    (2, 1, 12, 2, 128, None, True), (1, 127, 12, 2, 128, None, True),
+    (1, 200, 6, 1, 64, None, True), (1, 300, 4, 4, 128, 96, True),
+    (1, 130, 4, 2, 64, 40, True), (1, 1000, 2, 1, 128, None, True),
+    (1, 100, 4, 2, 128, None, False),
+]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,window,causal", EMULATED)
+def test_tensor_core_arithmetic_is_within_one_bf16_ulp(B, S, Hq, Hkv, hd,
+                                                       window, causal):
+    """The bound chip_smoke.py holds the kernel to: at most one bf16 ulp
+    beyond atol 2e-5 of the plain version. Both compute in float32 and
+    round once to bf16, so a sum taken in another order can land on the
+    neighbouring bf16 value; an output near zero (a sum that cancels)
+    carries a float32 rounding error of ~1e-7, which the atol covers."""
+    _, (tq, tk, tv) = _qkv(S + hd + Hq, B, S, Hq, Hkv, hd, "bfloat16")
+    got = _tensor_core_emulation(tq, tk, tv, causal=causal, window=window)
+    want = ref.flash_attention_plain(tq, tk, tv, causal=causal,
+                                     window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _bf16_ulps_apart(got, want, atol=2e-5) <= 1.0
+
+
+def test_one_bf16_rounding_of_p_breaks_the_bound():
+    """Why the kernel splits p: rounded once to bf16 (what the reference's
+    jnp oracle does), p errs by up to 2^-9 of each weight, and an output
+    that cancels near zero then lands hundreds of bf16 ulps (beyond atol
+    2e-5) from the plain version."""
+    _, (tq, tk, tv) = _qkv(1, 1, 127, 12, 2, 128, "bfloat16")
+    got = _tensor_core_emulation(tq, tk, tv, split=False)
+    want = ref.flash_attention_plain(tq, tk, tv)
+    assert _bf16_ulps_apart(got, want, atol=2e-5) > 1.0

@@ -316,6 +316,29 @@ def test_serve_batch_ref_matches_reference_serve_batch(params):
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
+def test_serve_batch_default_is_the_reference_attention(params,
+                                                        monkeypatch):
+    """Called as the reference's ``serve_batch`` is, with no ``impl``, the
+    port prefills with the same plain attention (never the flash kernel's
+    function) and returns the reference's tokens."""
+    def no_flash(*args, **kwargs):
+        raise AssertionError("the default prefill reached flash_attention")
+
+    monkeypatch.setattr(ops, "flash_attention", no_flash)
+    jcfg, cfg = _cfgs("float32")
+    jp, tp = params
+    prompts = _prompts(2, 5)
+    want = jserve.serve_batch(jcfg, jp, prompts, max_new=4, bucket=32)
+    got = serve.serve_batch(cfg, tp, prompts, max_new=4, bucket=32)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_serve_main_defaults_to_the_reference_attention(capsys):
+    serve.main(["--device", "cpu", "--requests", "1", "--max-new", "2",
+                "--bucket", "8"])
+    assert "attention ref" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_serve_batch_pallas_matches_reference_loop(params, dtype):
     """float32: every step's logits within 1e-4 and the continuations equal
@@ -332,7 +355,8 @@ def test_serve_batch_pallas_matches_reference_loop(params, dtype):
     if dtype == "float32":
         top2 = np.sort(jlogits, axis=-1)[..., -2:]
         assert float((top2[..., 1] - top2[..., 0]).min()) > F32_MODEL
-        got = serve.serve_batch(cfg, tp, prompts, max_new=5, bucket=32)
+        got = serve.serve_batch(cfg, tp, prompts, max_new=5, bucket=32,
+                                impl="pallas")
         np.testing.assert_array_equal(got, jtok)
 
 
