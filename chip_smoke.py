@@ -10,12 +10,16 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
 2. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc,
    one process per source, all started together;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the paths of phases 5 and 6 give it and at ragged edges, and time
-   kernel, plain version and (where one exists) the single PyTorch call
-   computing the same function, with CUDA events (median over repeats,
-   L2 flushed before each repeat of the memory-bound kernels); print the
-   bf16 flash kernel's ptxas report and fail if ``flash_attention.so``
-   holds no HGMMA (wgmma) instruction;
+   shapes the paths of phases 5 and 6 give it and at ragged edges (the
+   ``masked_pseudo_ce`` mask and backward and every compaction kernel bit
+   for bit), and time kernel, plain version and (where one exists) the
+   single PyTorch call computing the same function, with CUDA events
+   (median over repeats, L2 flushed before each repeat of the
+   memory-bound kernels); time one call of ``masked_pseudo_ce`` (forward
+   and backward) and of ``csr_compact`` by torch.profiler too: device
+   time, device ops and host time a call; print the bf16 flash kernel's
+   ptxas report and fail if ``flash_attention.so`` holds no HGMMA
+   (wgmma) instruction;
 4. run the port's sequential engine twice on the card and once on the CPU
    from the same initial weights (full-width paper CNN, dropout 0,
    2 rounds) and compare schedules, parameters, metrics and ACO; then
@@ -29,9 +33,10 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    (the default), batched + dense_masked, sequential + dense_masked, and
    batched and sequential on csr_q with error feedback, each with the
    launch counters reset just before it and read just after, failing if
-   a kernel of the path never launched, a kernel off the path did, or
-   (on the csr_q paths) ``csr_quant`` and ``csr_compact`` launched other
-   than their exact count a round; then run one more round of each path
+   a kernel of the path never launched, a kernel off the path did, the
+   ``masked_pseudo_ce`` backward launched other than once a forward, or
+   ``csr_compact`` (and on the csr_q paths ``csr_quant``) other than its
+   exact count a round; then run one more round of each path
    under ``torch.profiler`` and print the device's busy share and its
    heaviest kernels;
 6. serve qwen2-1.5b at full width (random weights, bf16): 8 requests
@@ -104,6 +109,48 @@ def time_ms(torch, fn, *, reps, flush=None):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+FLUSH_KERNEL = "bitwise_not"  # the L2 flush, not counted in a call's time
+
+
+def profile_call(torch, fn, *, reps, flush=None):
+    """One call of ``fn()`` on the card: its device time (the sum of its
+    device ops' times in torch.profiler, ms), the device ops it runs and
+    their names, each a mean over ``reps`` calls (``flush()`` before each,
+    its kernel left out, and the calls counted by its launches: a trace
+    can miss some); and its host time (ms of host clock to issue one
+    call, over ``reps`` calls issued back to back without a synchronise)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [e for e in prof.key_averages() if e.device_type == cuda and
+            e.self_device_time_total > 0]
+    calls = reps if flush is None else \
+        sum(e.count for e in rows if FLUSH_KERNEL in e.key) or reps
+    rows = [e for e in rows if FLUSH_KERNEL not in e.key]
+    names = {}
+    for e in rows:
+        names[e.key[:80]] = names.get(e.key[:80], 0) + e.count / calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return {"device_ms": sum(e.self_device_time_total for e in rows)
+            / 1e3 / calls,
+            "device_ops": sum(e.count for e in rows) / calls,
+            "device_op_names": names, "traced_calls": calls,
+            "host_ms": host_ms}
+
+
 # -- phase 3: kernels against their plain versions -------------------------
 def _timed(torch, kernel, plain, nbytes, nops, *, reps, plain_reps=None,
            flush=None, library=None):
@@ -117,38 +164,105 @@ def _timed(torch, kernel, plain, nbytes, nops, *, reps, plain_reps=None,
             "bound_ms": b, "bound_by": by}
 
 
+def _mpce_logits(torch, gen, dev, n, c):
+    """(n, c) logits: random rows, every 7th with its maximum tied at a
+    later column, every 5th with a max softmax of theta (1 +- 2e-5), far
+    enough from theta that the kernel and the plain version, whose sums
+    round differently, mask it alike."""
+    x = torch.randn((n, c), generator=gen, device=dev) * 3
+    x[::7, c - 1] = x[::7].max(dim=1).values
+    rows = x[2::5]
+    d = torch.where(torch.arange(len(rows), device=dev) % 2 == 0, 2e-5,
+                    -2e-5)
+    # logits (0, b, ..., b): 1 / (1 + (c - 1) e^b) = theta (1 + d)
+    b = torch.log((1 / (THETA * (1 + d)) - 1) / (c - 1))
+    x[2::5] = b[:, None].expand(-1, c).clone()
+    x[2::5, 0] = 0.0
+    return x
+
+
+def _mpce_call(torch, fwd, bwd, logits, g):
+    """Forward and backward of the Eq. 5 loss through autograd, as a client
+    step runs them; ``bwd`` None: the autograd Function's own backward."""
+    if bwd is not None:
+        loss, mask = fwd(logits, THETA)
+        return loss, mask, bwd(logits, mask, g)
+    lk = logits.detach().requires_grad_(True)
+    loss, mask = fwd(lk, THETA)
+    torch.autograd.backward(loss, g)
+    return loss, mask, lk.grad
+
+
 def check_masked_pseudo_ce(torch, ops, ref, dev, gen):
+    """Forward: loss within 1e-6 of the plain version, mask bit for bit.
+    Backward kernel: bit for bit the plain gradient on the card, through
+    autograd and called alone. Then per call at the path shapes, forward
+    and backward together: device time and ops (torch.profiler), host
+    time, against the plain version's."""
     worst = 0.0
     for n, c in ((600, 9), (100, 9), (4096, 9), (300, 40)):
-        logits = torch.randn((n, c), generator=gen, device=dev) * 3
+        logits = _mpce_logits(torch, gen, dev, n, c)
         g = torch.rand((n,), generator=gen, device=dev)
-        lk = logits.clone().requires_grad_(True)
-        loss_k, mask_k = ops.masked_pseudo_ce(lk, THETA)
-        (grad_k,) = torch.autograd.grad((loss_k * g).sum(), lk)
-        lp = logits.clone().requires_grad_(True)
-        loss_p, mask_p = ref.masked_pseudo_ce_ref(lp, THETA)
-        grad_p = ref.masked_pseudo_ce_grad(logits, mask_p, g)
+        loss_k, mask_k, grad_k = _mpce_call(torch, ops.masked_pseudo_ce,
+                                            None, logits, g)
+        loss_p, mask_p = ref.masked_pseudo_ce_ref(logits, THETA)
+        grad_p = ref.masked_pseudo_ce_grad(logits, mask_k, g)
+        grad_d = ops.masked_pseudo_ce_grad(logits, mask_k, g)
         torch.cuda.synchronize()
-        err = max(float((loss_k - loss_p).detach().abs().max()),
-                  float((mask_k - mask_p).abs().max()),
-                  float((grad_k - grad_p).abs().max()))
-        log(f"  masked_pseudo_ce ({n}, {c}): max |kernel - plain| "
-            f"(loss, mask, grad) = {err:.3g}")
-        check(err <= 1e-6, f"masked_pseudo_ce ({n}, {c}) off by {err}")
+        err = float((loss_k - loss_p).detach().abs().max())
+        same = [_same_bits(torch, mask_k, mask_p),
+                _same_bits(torch, grad_k, grad_p),
+                _same_bits(torch, grad_d, grad_p)]
+        masked = int(mask_k.sum())
+        log(f"  masked_pseudo_ce ({n}, {c}): max |loss - plain| {err:.3g}; "
+            f"same bits as plain (mask, grad through autograd, grad alone) "
+            f"{same}; {masked} of {n} rows masked in")
+        check(err <= 1e-6, f"masked_pseudo_ce ({n}, {c}) loss off by {err}")
+        check(all(same), f"masked_pseudo_ce ({n}, {c}): mask or gradient "
+              "differs from the plain version's bits")
+        check(0 < masked < n, "masked_pseudo_ce: no row on one side of theta")
         worst = max(worst, err)
-    shapes = []
+    fwd_bwd, bwd = [], []
     # (600, 9): a batched step, all 6 clients' rows; (100, 9): a sequential
-    # step, one client's batch
+    # step, one client's batch. A call moves the logits and g in, loss,
+    # mask and gradient out; the backward alone logits, mask and g in.
     for n, c in ((600, 9), (100, 9)):
-        logits = torch.randn((n, c), generator=gen, device=dev) * 3
-        shapes.append({"shape": [n, c], **_timed(
-            torch, lambda: ops.masked_pseudo_ce(logits, THETA),
-            lambda: ref.masked_pseudo_ce_ref(logits, THETA),
-            4 * n * c + 8 * n, 4 * n * c + 6 * n, reps=200)})
-    return {"name": "masked_pseudo_ce", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/masked_pseudo_ce.cu",
-            "replaces": "src/repro/kernels/masked_pseudo_ce.py:33",
-            "max_abs_err": worst, **shapes[0], "other_shapes": shapes[1:]}
+        logits = _mpce_logits(torch, gen, dev, n, c)
+        g = torch.rand((n,), generator=gen, device=dev)
+        mask = ops.masked_pseudo_ce(logits, THETA)[1]
+        kern = profile_call(torch, lambda: _mpce_call(
+            torch, ops.masked_pseudo_ce, None, logits, g), reps=200)
+        plain = profile_call(torch, lambda: _mpce_call(
+            torch, ref.masked_pseudo_ce_ref, ref.masked_pseudo_ce_grad,
+            logits, g), reps=200)
+        b, by = bound_ms(8 * n * c + 12 * n, 11 * n * c + 7 * n)
+        fwd_bwd.append({
+            "shape": [n, c], "ms": kern["device_ms"],
+            "plain_ms": plain["device_ms"], "library_ms": None,
+            "bound_ms": b, "bound_by": by, **kern,
+            "plain_device_ops": plain["device_ops"],
+            "plain_host_ms": plain["host_ms"]})
+        kb = profile_call(torch, lambda: ops.masked_pseudo_ce_grad(
+            logits, mask, g), reps=200)
+        pb = profile_call(torch, lambda: ref.masked_pseudo_ce_grad(
+            logits, mask, g), reps=200)
+        b, by = bound_ms(8 * n * c + 8 * n, 7 * n * c + n)
+        bwd.append({"shape": [n, c], "ms": kb["device_ms"],
+                    "plain_ms": pb["device_ms"], "library_ms": None,
+                    "bound_ms": b, "bound_by": by, **kb,
+                    "plain_device_ops": pb["device_ops"],
+                    "plain_host_ms": pb["host_ms"]})
+    return [{"name": "masked_pseudo_ce", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/masked_pseudo_ce.cu",
+             "replaces": "src/repro/kernels/masked_pseudo_ce.py:33",
+             "timed": "forward and backward through autograd",
+             "max_abs_err": worst, **fwd_bwd[0],
+             "other_shapes": fwd_bwd[1:]},
+            {"name": "masked_pseudo_ce_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/masked_pseudo_ce.cu",
+             "replaces": "src/repro/kernels/ops.py:51 (_mpce_bwd, the "
+                         "plain-jnp backward of masked_pseudo_ce_pallas)",
+             "max_abs_err": 0.0, **bwd[0], "other_shapes": bwd[1:]}]
 
 
 def _same_bits(torch, a, b):
@@ -166,6 +280,20 @@ def _delta(torch, gen, dev, k, n):
     x = torch.randn((k, n), generator=gen, device=dev) * 1e-3
     zeros = torch.rand((k, n), generator=gen, device=dev) < 0.1
     return x.masked_fill(zeros, 0.0)
+
+
+def csr_compact_call(torch, ops, ref, x, thr, cap, flush):
+    """One ``csr_compact`` call at (K, N): CUDA-event time, device time,
+    device ops and host time, L2 flushed before each; the bound counts x
+    read once and every slot of vals and idx written once, the zero tail
+    included."""
+    k, n = x.shape
+    b, by = bound_ms(4 * k * n + 4 * k + 8 * k * cap + 4 * k, 3 * k * n)
+    return {"ms": time_ms(torch, lambda: ops.csr_compact(x, thr, cap),
+                          reps=30, flush=flush),
+            **profile_call(torch, lambda: ops.csr_compact(x, thr, cap),
+                           reps=30, flush=flush),
+            "bound_ms": b, "bound_by": by}
 
 
 def check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush):
@@ -196,17 +324,14 @@ def check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush):
             f"nnz {nk.tolist()}, bit-exact {same}")
         check(same, f"csr_compact {label}: kernel differs from plain")
     shapes = []
-    for xx, tt, cap in ((x6, thr6, CAP_FULL), (x, thr, CAP_FULL),
-                        (xres, thr_res, RCAP_FULL)):
-        k = xx.shape[0]
-        stored = int(torch.clamp(ref.csr_compact2d_ref(xx, tt, cap)[2],
-                                 max=cap).sum())
-        shapes.append({"shape": [k, N_FULL], "cap": cap,
-                       "stored": stored, **_timed(
-            torch, lambda: ops.csr_compact(xx, tt, cap),
-            lambda: ref.csr_compact2d_ref(xx, tt, cap),
-            4 * k * N_FULL + 4 * k + 8 * stored + 4 * k, 3 * k * N_FULL,
-            reps=30, plain_reps=10, flush=flush)})
+    for label, xx, tt, cap in (cases[0], cases[1], cases[3]):
+        shapes.append({"shape": list(xx.shape), "case": label, "cap": cap,
+                       **csr_compact_call(torch, ops, ref, xx, tt, cap,
+                                          flush),
+                       "plain_ms": time_ms(
+                           torch, lambda: ref.csr_compact2d_ref(xx, tt, cap),
+                           reps=10, flush=flush),
+                       "library_ms": None})
     return {"name": "csr_compact", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/csr_compact.cu",
             "replaces": "src/repro/kernels/csr_compact.py:75",
@@ -670,8 +795,10 @@ def engines_on_card(torch, port, rounds=2):
 # -- phase 5: the six paths ------------------------------------------------
 # (engine, wire, error feedback) -> the kernels that path must launch; every
 # other kernel must not launch on it
-CSR_KERNELS = ("masked_pseudo_ce", "csr_compact", "staleness_agg")
-DENSE_KERNELS = ("masked_pseudo_ce", "sparse_delta", "staleness_agg")
+CSR_KERNELS = ("masked_pseudo_ce", "masked_pseudo_ce_bwd", "csr_compact",
+               "staleness_agg")
+DENSE_KERNELS = ("masked_pseudo_ce", "masked_pseudo_ce_bwd", "sparse_delta",
+                 "staleness_agg")
 PATHS = {
     ("sequential", "csr", False): CSR_KERNELS,
     ("batched", "csr", False): CSR_KERNELS,
@@ -682,10 +809,12 @@ PATHS = {
 }
 DEFAULT_PATH = ("batched", "csr", False)
 # launches a round that a path must show exactly: with K = 6 participants,
-# the batched round quantizes the upload stack and the chain advance and
-# compacts the payloads, the residuals and the chain; the sequential round
-# does each per participant
+# the batched round compacts the upload stack and the chain advance, and
+# with EF the residuals too, and quantizes the upload stack and the chain;
+# the sequential round does each per participant
 PER_ROUND = {
+    ("sequential", "csr", False): {"csr_compact": 7},
+    ("batched", "csr", False): {"csr_compact": 2},
     ("batched", "csr_q", True): {"csr_quant": 2, "csr_compact": 3},
     ("sequential", "csr_q", True): {"csr_quant": 7, "csr_compact": 13},
 }
@@ -728,13 +857,16 @@ def drive_path(torch, port, ops, engine, wire, ef, rounds=3):
     s_round = (t2 - t1) / rounds
     log(f"  {name}: {rounds} rounds, N = {n}: set-up (warm-up) "
         f"{t1 - t0:.3f} s, {s_round:.3f} s per round, accuracy "
-        f"{m['accuracy']:.4f}, ACO {out['aco']:.4f}; launches {launches}")
+        f"{m['accuracy']:.6f}, ACO {out['aco']:.6f}; launches {launches}")
     for kernel, count in launches.items():
         if kernel in PATHS[(engine, wire, ef)]:
             check(count > 0, f"kernel {kernel} never launched on {name}")
         else:
             check(count == 0, f"kernel {kernel} launched {count} times off "
                   f"its path ({name})")
+    check(launches["masked_pseudo_ce_bwd"] == launches["masked_pseudo_ce"],
+          f"{name}: {launches['masked_pseudo_ce_bwd']} backward launches "
+          f"for {launches['masked_pseudo_ce']} forward ones")
     for kernel, per_round in PER_ROUND.get((engine, wire, ef), {}).items():
         check(launches[kernel] == per_round * rounds,
               f"{kernel} launched {launches[kernel]} times on {name}, "
@@ -1005,12 +1137,13 @@ def main():
     log("phase 3: kernels against their plain versions")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    scratch = torch.empty(96 * 2**20 // 4, device=dev)   # > 50 MB of L2
+    scratch = torch.zeros(96 * 2**20 // 4, dtype=torch.int32,
+                          device=dev)                  # > 50 MB of L2
 
     def flush():
-        scratch.zero_()
+        torch.bitwise_not(scratch, out=scratch)
 
-    kernels = [check_masked_pseudo_ce(torch, ops, ref, dev, gen),
+    kernels = [*check_masked_pseudo_ce(torch, ops, ref, dev, gen),
                check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush),
                check_staleness_agg(torch, ops, ref, dev, gen, flush),
                check_sparse_delta(torch, ops, ref, dev, gen, flush),
@@ -1023,9 +1156,13 @@ def main():
     torch.cuda.empty_cache()
     for k in kernels:
         for sh in [k] + k["other_shapes"]:
-            log(f"  {k['name']} {sh['shape']}: kernel {sh['ms']:.4f} ms, "
-                f"plain {sh['plain_ms']:.4f} ms, library {sh['library_ms']}, "
-                f"bound {sh['bound_ms']:.6f} ms ({sh['bound_by']})")
+            per_call = "" if "device_ms" not in sh else (
+                f" (a call: device {sh['device_ms']:.5f} ms in "
+                f"{sh['device_ops']:g} ops, host {sh['host_ms']:.5f} ms)")
+            log(f"  {k['name']} {sh['shape']}: kernel {sh['ms']:.5f} ms"
+                f"{per_call}, plain {sh['plain_ms']:.5f} ms, library "
+                f"{sh['library_ms']}, bound {sh['bound_ms']:.6f} ms "
+                f"({sh['bound_by']})")
 
     log("phase 4: the sequential engine on the card vs on the CPU (full "
         "width, dropout 0); then batched vs sequential on the card (dropout "

@@ -30,9 +30,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 SIGNATURES = {
     "masked_pseudo_ce_launch": ("masked_pseudo_ce",
                                 (_P, _P, _P, _I, _I, _F, _P)),
-    "csr_compact_count": ("csr_compact", (_P, _P, _P, _I, _I, _I, _P)),
-    "csr_compact_scatter": ("csr_compact",
-                            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "masked_pseudo_ce_bwd_launch": ("masked_pseudo_ce",
+                                    (_P, _P, _P, _P, _I, _I, _P)),
+    "csr_compact_launch": ("csr_compact", (_P, _P, _P, _P, _P, _P, _P, _LL,
+                                           _LL, _I, _I, _I, _P)),
     "staleness_agg_launch": ("staleness_agg", (_P, _P, _P, _I, _LL, _P)),
     "sparse_delta_launch": ("sparse_delta",
                             (_P, _P, _P, _P, _I, _LL, _I, _P)),

@@ -17,8 +17,12 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
-LAUNCHES = {"masked_pseudo_ce": 0, "csr_compact": 0, "staleness_agg": 0,
-            "sparse_delta": 0, "csr_quant": 0, "flash_attention": 0}
+LAUNCHES = {"masked_pseudo_ce": 0, "masked_pseudo_ce_bwd": 0,
+            "csr_compact": 0, "staleness_agg": 0, "sparse_delta": 0,
+            "csr_quant": 0, "flash_attention": 0}
+MPCE_BWD_MAX_C = 1024     # torch.softmax's persistent-kernel range
+CSR_TILE = 8192           # kTile in csrc/csr_compact.cu
+CSR_EPOCHS = 1 << 29      # epochs a flag word's bits 34-62 hold
 Q_DTYPES = {"int8": torch.int8, "fp16": torch.float16}
 FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # -> the kernel's bf16 flag
 FLASH_HEAD_DIMS = (64, 128)
@@ -82,20 +86,70 @@ class _MaskedPseudoCE(torch.autograd.Function):
         loss, mask = _masked_pseudo_ce_fwd(logits, threshold)
         ctx.save_for_backward(logits, mask)
         ctx.mark_non_differentiable(mask)
+        # no zeros for the mask's gradient: one device op less a step
+        ctx.set_materialize_grads(False)
         return loss, mask
 
     @staticmethod
     def backward(ctx, g_loss, _g_mask):
+        if g_loss is None:
+            return None, None
         logits, mask = ctx.saved_tensors
-        return ref.masked_pseudo_ce_grad(logits, mask, g_loss), None
+        return masked_pseudo_ce_grad(logits, mask, g_loss.contiguous()), None
 
 
 def masked_pseudo_ce(logits, threshold):
     """Eq. 5 (log-space mask): logits (N, C) f32 -> (loss (N,), mask (N,)).
     Differentiable in ``logits``; the backward is
-    ``(softmax - onehot(argmax)) * mask * g`` in plain PyTorch, as the
-    reference's is plain jnp."""
+    ``masked_pseudo_ce_grad``."""
     return _MaskedPseudoCE.apply(logits.contiguous(), threshold)
+
+
+def masked_pseudo_ce_grad(logits, mask, g):
+    """Backward of Eq. 5 (``repro/kernels/ops.py:51-58``): logits (N, C),
+    mask (N,), g (N,) f32 -> ``(softmax - onehot(argmax)) * (mask * g)``
+    (N, C), ties to the first index. The kernel gives the bits that
+    ``ref.masked_pseudo_ce_grad`` gives on the card; it takes C <= 1024,
+    where torch.softmax runs the arithmetic it repeats."""
+    _check("logits", logits, 2)
+    _check("mask", mask, 1)
+    _check("g", g, 1)
+    n, c = logits.shape
+    if mask.shape[0] != n or g.shape[0] != n:
+        raise ValueError(f"shapes disagree: logits {tuple(logits.shape)}, "
+                         f"mask {tuple(mask.shape)}, g {tuple(g.shape)}")
+    if not _same_device(logits, mask, g):
+        return ref.masked_pseudo_ce_grad(logits, mask, g)
+    if c > MPCE_BWD_MAX_C:
+        raise ValueError(f"the backward kernel takes at most "
+                         f"{MPCE_BWD_MAX_C} classes, got {c}")
+    grad = torch.empty_like(logits)
+    if n and c:
+        _launch("masked_pseudo_ce_bwd_launch", logits.data_ptr(),
+                mask.data_ptr(), g.data_ptr(), grad.data_ptr(), n, c,
+                _stream(logits))
+        LAUNCHES["masked_pseudo_ce_bwd"] += 1
+    return grad
+
+
+_csr_state = {}   # (device, stream) -> [flag words + counter, drawn, epoch]
+
+
+def _csr_workspace(x, stream, tiles):
+    """``csr_compact``'s look-back state on ``x``'s device and ``stream``:
+    int64 words, one flag a tile and the ticket counter last, with the
+    tickets drawn from the counter so far and a new epoch for this call.
+    The words are made zero on first use, when a call needs more tiles or
+    when the epochs run out, and never reset otherwise."""
+    key = (x.device, stream)
+    state = _csr_state.get(key)
+    if state is None or state[0].numel() <= tiles or \
+            state[2] + 1 >= CSR_EPOCHS:
+        state = [torch.zeros(tiles + 1, dtype=torch.int64, device=x.device),
+                 0, 0]
+        _csr_state[key] = state
+    state[2] += 1
+    return state
 
 
 def csr_compact(x, thresholds, cap):
@@ -116,20 +170,22 @@ def csr_compact(x, thresholds, cap):
         return ref.csr_compact2d_ref(x, thresholds, cap)
     if K > 65535:
         raise ValueError(f"at most 65535 rows per launch, got {K}")
-    nblk = (N + 511) // 512
-    counts = torch.empty((K, nblk), dtype=torch.int32, device=x.device)
-    stream = _stream(x)
-    _launch("csr_compact_count", x.data_ptr(), thresholds.data_ptr(),
-            counts.data_ptr(), K, N, nblk, stream)
-    incl = torch.cumsum(counts, dim=1, dtype=torch.int32)
-    offsets = incl - counts
-    vals = torch.zeros((K, cap), dtype=torch.float32, device=x.device)
-    idx = torch.zeros((K, cap), dtype=torch.int32, device=x.device)
-    _launch("csr_compact_scatter", x.data_ptr(), thresholds.data_ptr(),
-            offsets.data_ptr(), vals.data_ptr(), idx.data_ptr(), K, N, nblk,
-            cap, stream)
-    LAUNCHES["csr_compact"] += 1
-    return vals, idx, incl[:, -1].contiguous()
+    tiles = K * -(-N // CSR_TILE)
+    vals = torch.empty((K, cap), dtype=torch.float32, device=x.device)
+    idx = torch.empty((K, cap), dtype=torch.int32, device=x.device)
+    nnz = torch.empty(K, dtype=torch.int32, device=x.device)
+    if K:
+        stream = _stream(x)
+        state = _csr_workspace(x, stream, tiles)
+        words = state[0]
+        _launch("csr_compact_launch", x.data_ptr(), thresholds.data_ptr(),
+                vals.data_ptr(), idx.data_ptr(), nnz.data_ptr(),
+                words.data_ptr(),
+                words.data_ptr() + 8 * (words.numel() - 1), state[1],
+                state[2] << 34, K, N, cap, stream)
+        state[1] += tiles
+        LAUNCHES["csr_compact"] += 1
+    return vals, idx, nnz
 
 
 def csr_quantize(values, indices, stored, n, *, q_dtype="int8"):
