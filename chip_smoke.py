@@ -14,12 +14,16 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    ``masked_pseudo_ce`` mask and backward and every compaction kernel bit
    for bit), and time kernel, plain version and (where one exists) the
    single PyTorch call computing the same function, with CUDA events
-   (median over repeats, L2 flushed before each repeat of the
-   memory-bound kernels); time one call of ``masked_pseudo_ce`` (forward
-   and backward) and of ``csr_compact`` by torch.profiler too: device
-   time, device ops and host time a call; print the bf16 flash kernel's
-   ptxas report and fail if ``flash_attention.so`` holds no HGMMA
-   (wgmma) instruction;
+   (median over repeats); time one call of ``masked_pseudo_ce`` (forward
+   and backward) and of ``flash_attention`` by torch.profiler too:
+   device time, device ops and host time a call; the memory-bound
+   kernels (``csr_compact``, ``staleness_agg``, ``sparse_delta``,
+   ``csr_quant``) the same, the L2
+   flushed before each repeat by a read of 96 MB that leaves no dirty
+   line, and again under the writing flush of earlier versions, whose
+   write-back the timed call pays; fail unless ``csr_quant`` is one
+   device op a call; print the bf16 flash kernel's ptxas report and fail
+   if ``flash_attention.so`` holds no HGMMA (wgmma) instruction;
 4. run the port's sequential engine twice on the card and once on the CPU
    from the same initial weights (full-width paper CNN, dropout 0,
    2 rounds) and compare schedules, parameters, metrics and ACO; then
@@ -109,16 +113,61 @@ def time_ms(torch, fn, *, reps, flush=None):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-FLUSH_KERNEL = "bitwise_not"  # the L2 flush, not counted in a call's time
+L2_FLUSH_SHAPE = (24_576, 1024)   # int32, 96 MB: about twice the L2
+
+
+def l2_flushes(torch, dev):
+    """Two ways to evict the card's 50 MB L2 before a timed call, each one
+    device op: ``clean`` reads a 96 MB buffer (a row max into 96 KB), so
+    the lines it leaves in L2 are clean and the timed call writes none of
+    them back; ``write``, the flush of earlier versions, inverts the buffer
+    in place and leaves up to the whole L2 dirty, whose write-back the
+    timed call then pays. Each carries ``kernel``, the profiler's name of
+    its device op, which ``profile_call`` leaves out of a call's time."""
+    scratch = torch.arange(L2_FLUSH_SHAPE[0] * L2_FLUSH_SHAPE[1],
+                           dtype=torch.int32, device=dev).view(
+                               L2_FLUSH_SHAPE)
+    rowmax = torch.empty(L2_FLUSH_SHAPE[0], dtype=torch.int32, device=dev)
+
+    def clean():
+        torch.amax(scratch, dim=1, out=rowmax)
+
+    def write():
+        torch.bitwise_not(scratch, out=scratch)
+
+    for flush in (clean, write):
+        flush.kernel = _only_device_op(torch, flush)
+    return SimpleNamespace(clean=clean, write=write)
+
+
+def _only_device_op(torch, fn):
+    """The profiler's name of the one device op ``fn()`` runs; fails if it
+    runs another number of them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [e for e in prof.key_averages() if e.device_type == cuda and
+            e.self_device_time_total > 0]
+    check(len(rows) == 1 and rows[0].count == 1,
+          f"an L2 flush runs {[(e.key, e.count) for e in rows]}, not one "
+          "device op")
+    return rows[0].key
 
 
 def profile_call(torch, fn, *, reps, flush=None):
     """One call of ``fn()`` on the card: its device time (the sum of its
     device ops' times in torch.profiler, ms), the device ops it runs and
     their names, each a mean over ``reps`` calls (``flush()`` before each,
-    its kernel left out, and the calls counted by its launches: a trace
-    can miss some); and its host time (ms of host clock to issue one
-    call, over ``reps`` calls issued back to back without a synchronise)."""
+    its kernel ``flush.kernel`` left out, and the calls counted by its
+    launches: a trace can miss some; fails if the flush's kernel ran more
+    often than the flush, i.e. if a measured op shares its name); and its
+    host time (ms of host clock to issue one call, over ``reps`` calls
+    issued back to back without a synchronise)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -132,9 +181,13 @@ def profile_call(torch, fn, *, reps, flush=None):
     cuda = torch.autograd.DeviceType.CUDA
     rows = [e for e in prof.key_averages() if e.device_type == cuda and
             e.self_device_time_total > 0]
-    calls = reps if flush is None else \
-        sum(e.count for e in rows if FLUSH_KERNEL in e.key) or reps
-    rows = [e for e in rows if FLUSH_KERNEL not in e.key]
+    calls = reps
+    if flush is not None:
+        flushed = sum(e.count for e in rows if e.key == flush.kernel)
+        check(flushed <= reps, f"the flush's kernel ran {flushed} times "
+              f"for {reps} flushes: a measured op shares its name")
+        calls = flushed or reps
+        rows = [e for e in rows if e.key != flush.kernel]
     names = {}
     for e in rows:
         names[e.key[:80]] = names.get(e.key[:80], 0) + e.count / calls
@@ -151,17 +204,39 @@ def profile_call(torch, fn, *, reps, flush=None):
             "host_ms": host_ms}
 
 
-# -- phase 3: kernels against their plain versions -------------------------
-def _timed(torch, kernel, plain, nbytes, nops, *, reps, plain_reps=None,
-           flush=None, library=None):
-    """Kernel, plain-version and library times (ms) and the bound."""
+def memory_bound_call(torch, fn, nbytes, nops, flushes, *, reps=30):
+    """A memory-bound kernel's call, the L2 flushed before each: ``ms`` is
+    its device time under the clean flush (torch.profiler; a CUDA-event
+    interval around a call that is short beside its host time measures the
+    host whenever the flush ends first), with device ops and host time a
+    call; beside it the device time under the writing flush and the
+    CUDA-event medians under both, and the bound."""
     b, by = bound_ms(nbytes, nops)
-    return {"ms": time_ms(torch, kernel, reps=reps, flush=flush),
+    clean = profile_call(torch, fn, reps=reps, flush=flushes.clean)
+    return {"ms": clean["device_ms"], **clean,
+            "device_ms_write_flush": profile_call(
+                torch, fn, reps=reps, flush=flushes.write)["device_ms"],
+            "event_ms": time_ms(torch, fn, reps=reps, flush=flushes.clean),
+            "event_ms_write_flush": time_ms(torch, fn, reps=reps,
+                                            flush=flushes.write),
+            "bound_ms": b, "bound_by": by}
+
+
+def _timed(torch, kernel, plain, nbytes, nops, *, reps, plain_reps=None,
+           flushes=None, library=None):
+    """Kernel, plain-version and library times (ms) and the bound; with
+    ``flushes``, the L2 flushed (clean) before each repeat, and the kernel
+    measured by ``memory_bound_call``."""
+    flush = None if flushes is None else flushes.clean
+    b, by = bound_ms(nbytes, nops)
+    kern = {"ms": time_ms(torch, kernel, reps=reps), "bound_ms": b,
+            "bound_by": by} if flushes is None else \
+        memory_bound_call(torch, kernel, nbytes, nops, flushes, reps=reps)
+    return {**kern,
             "plain_ms": time_ms(torch, plain, reps=plain_reps or reps,
                                 flush=flush),
             "library_ms": None if library is None else
-            time_ms(torch, library, reps=reps, flush=flush),
-            "bound_ms": b, "bound_by": by}
+            time_ms(torch, library, reps=reps, flush=flush)}
 
 
 def _mpce_logits(torch, gen, dev, n, c):
@@ -282,21 +357,17 @@ def _delta(torch, gen, dev, k, n):
     return x.masked_fill(zeros, 0.0)
 
 
-def csr_compact_call(torch, ops, ref, x, thr, cap, flush):
-    """One ``csr_compact`` call at (K, N): CUDA-event time, device time,
-    device ops and host time, L2 flushed before each; the bound counts x
-    read once and every slot of vals and idx written once, the zero tail
-    included."""
+def csr_compact_call(torch, ops, x, thr, cap, flushes):
+    """One ``csr_compact`` call at (K, N), measured by
+    ``memory_bound_call``; the bound counts x read once and every slot of
+    vals and idx written once, the zero tail included."""
     k, n = x.shape
-    b, by = bound_ms(4 * k * n + 4 * k + 8 * k * cap + 4 * k, 3 * k * n)
-    return {"ms": time_ms(torch, lambda: ops.csr_compact(x, thr, cap),
-                          reps=30, flush=flush),
-            **profile_call(torch, lambda: ops.csr_compact(x, thr, cap),
-                           reps=30, flush=flush),
-            "bound_ms": b, "bound_by": by}
+    return memory_bound_call(
+        torch, lambda: ops.csr_compact(x, thr, cap),
+        4 * k * n + 4 * k + 8 * k * cap + 4 * k, 3 * k * n, flushes)
 
 
-def check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush):
+def check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flushes):
     x6 = _delta(torch, gen, dev, 6, N_FULL)
     thr6 = comm_mod.local_quantile_thresholds(x6, 0.2)
     x = x6[:1].clone()
@@ -326,11 +397,10 @@ def check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush):
     shapes = []
     for label, xx, tt, cap in (cases[0], cases[1], cases[3]):
         shapes.append({"shape": list(xx.shape), "case": label, "cap": cap,
-                       **csr_compact_call(torch, ops, ref, xx, tt, cap,
-                                          flush),
+                       **csr_compact_call(torch, ops, xx, tt, cap, flushes),
                        "plain_ms": time_ms(
                            torch, lambda: ref.csr_compact2d_ref(xx, tt, cap),
-                           reps=10, flush=flush),
+                           reps=10, flush=flushes.clean),
                        "library_ms": None})
     return {"name": "csr_compact", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/csr_compact.cu",
@@ -338,7 +408,7 @@ def check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush):
             "max_abs_err": 0.0, **shapes[0], "other_shapes": shapes[1:]}
 
 
-def check_staleness_agg(torch, ops, ref, dev, gen, flush):
+def check_staleness_agg(torch, ops, ref, dev, gen, flushes):
     worst, shapes = 0.0, []
     for k in (6, 3):
         d = torch.randn((k, N_FULL), generator=gen, device=dev) * 1e-2
@@ -357,14 +427,14 @@ def check_staleness_agg(torch, ops, ref, dev, gen, flush):
             torch, lambda: ops.staleness_agg(d, w),
             lambda: ref.staleness_agg_ref(d, w),
             (k + 1) * 4 * N_FULL + 4 * k, 2 * k * N_FULL, reps=30,
-            flush=flush, library=lambda: w @ d)})
+            flushes=flushes, library=lambda: w @ d)})
     return {"name": "staleness_agg", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/staleness_agg.cu",
             "replaces": "src/repro/kernels/staleness_agg.py:28",
             "max_abs_err": worst, **shapes[0], "other_shapes": shapes[1:]}
 
 
-def check_sparse_delta(torch, ops, ref, dev, gen, flush):
+def check_sparse_delta(torch, ops, ref, dev, gen, flushes):
     """Bit for bit (signed zeros included) at the dense_masked paths'
     shapes, a ragged row length, thr <= 0 and exact zeros."""
     x6 = _delta(torch, gen, dev, 6, N_FULL)
@@ -410,7 +480,7 @@ def check_sparse_delta(torch, ops, ref, dev, gen, flush):
             torch, lambda: ops.sparse_delta_batch(xx, tt),
             lambda: ref.sparse_delta2d_ref(xx, tt),
             8 * k * N_FULL + 4 * k * nblk + 4 * k, 2 * k * N_FULL, reps=30,
-            flush=flush)})
+            flushes=flushes)})
     return {"name": "sparse_delta", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sparse_delta.cu",
             "replaces": "src/repro/kernels/sparse_delta.py:54",
@@ -423,33 +493,69 @@ def _quant_plain(ref, v, i, s, n, q_dtype):
     return qvals, offs, counts, scales
 
 
-def check_csr_quant(torch, ops, ref, comm_mod, dev, gen, flush):
+def quant_payload(torch, ops, comm_mod, x, keep, cap):
+    """A real csr_q input: ``csr_compact``'s payload of ``x`` at the top
+    ``keep`` of each row, with the stored counts cut at ``cap``."""
+    v, i, nnz = ops.csr_compact(x, comm_mod.local_quantile_thresholds(
+        x, keep), cap)
+    return v, i, torch.clamp(nnz, max=cap)
+
+
+def csr_quant_call(torch, ops, v, i, s, n, q_dtype, flushes):
+    """One ``csr_quantize`` call, measured by ``memory_bound_call``; the
+    bound counts the stored prefix of values and indices read once and
+    every slot of q and offsets, every block count and scale written
+    once."""
+    k, cap = v.shape
+    stored = int(s.sum())
+    nblk = -(-n // 512)
+    q_bytes = 2 if q_dtype == "fp16" else 1
+    return {"stored": stored, "q_dtype": q_dtype, **memory_bound_call(
+        torch, lambda: ops.csr_quantize(v, i, s, n, q_dtype=q_dtype),
+        8 * stored + 4 * k + (q_bytes + 2) * k * cap + 2 * k * nblk + 4 * k,
+        6 * stored + 2 * k * cap, flushes)}
+
+
+def check_csr_quant(torch, ops, ref, comm_mod, dev, gen, flushes):
     """Bit for bit (q, offsets, block counts, scales) on real csr_compact
     payloads at full width, (6, cap) and (1, cap), a row cut by its
-    capacity, an all-zero row, stored = 0, a ragged width, and fp16."""
-    def payload(x, keep, cap):
-        v, i, nnz = ops.csr_compact(x, comm_mod.local_quantile_thresholds(
-            x, keep), cap)
-        return v, i, torch.clamp(nnz, max=cap)
-
+    capacity, an all-zero row, stored = 0, a ragged width, a row whose
+    slots all fall in one 512-column block, a row whose stored prefix ends
+    on a block's last column, and fp16; then one call at (6, cap) and
+    (1, cap) measured, which must be one device op."""
     x6 = _delta(torch, gen, dev, 6, N_FULL)
-    v6, i6, s6 = payload(x6, 0.2, CAP_FULL)
+    v6, i6, s6 = quant_payload(torch, ops, comm_mod, x6, 0.2, CAP_FULL)
     v1, i1, s1 = v6[:1].clone(), i6[:1].clone(), s6[:1].clone()
     cut = max(int(s1[0]) // 3, 1)
-    vc, ic, sc = payload(x6[:1].contiguous(), 0.2, cut)
+    vc, ic, sc = quant_payload(torch, ops, comm_mod, x6[:1].contiguous(),
+                               0.2, cut)
     vz, iz, sz = v6[:2].clone(), i6[:2].clone(), s6[:2].clone()
     vz[0] = 0.0                  # an all-zero row with live slots
     sz[1] = 0                    # and a row with nothing stored
     xr = _delta(torch, gen, dev, 3, 1_000_003)
-    vr, ir, sr = payload(xr, 0.2, 400_001)
+    vr, ir, sr = quant_payload(torch, ops, comm_mod, xr, 0.2, 400_001)
+    # row 0: 300 slots, all in block 7; row 1: the prefix ends on the last
+    # column of block 4,000, the blocks past it empty
+    vb, ib, sb = v6[:2].clone(), i6[:2].clone(), s6[:2].clone()
+    ib[0, :300] = 7 * 512 + torch.sort(torch.randperm(
+        512, generator=gen, device=dev)[:300]).values.to(torch.int32)
+    sb[0] = 300
+    edge = int((ib[1, :int(sb[1])] < 4_000 * 512).sum())
+    ib[1, edge - 1] = 4_000 * 512 - 1
+    sb[1] = edge
     cases = [("batched upload (6, cap)", v6, i6, s6, N_FULL, "int8"),
              ("sequential upload / chain advance (1, cap)", v1, i1, s1,
               N_FULL, "int8"),
              ("cap < nnz", vc, ic, sc, N_FULL, "int8"),
              ("all-zero row, stored = 0", vz, iz, sz, N_FULL, "int8"),
              ("ragged (3, 1000003)", vr, ir, sr, 1_000_003, "int8"),
+             ("one block; prefix ending on a block edge", vb, ib, sb,
+              N_FULL, "int8"),
              ("fp16 (6, cap)", v6, i6, s6, N_FULL, "fp16"),
-             ("fp16 ragged (3, 1000003)", vr, ir, sr, 1_000_003, "fp16")]
+             ("fp16 (1, cap)", v1, i1, s1, N_FULL, "fp16"),
+             ("fp16 ragged (3, 1000003)", vr, ir, sr, 1_000_003, "fp16"),
+             ("fp16 one block; prefix ending on a block edge", vb, ib, sb,
+              N_FULL, "fp16")]
     for label, v, i, s, n, q_dtype in cases:
         got = ops.csr_quantize(v, i, s, n, q_dtype=q_dtype)
         want = _quant_plain(ref, v, i, s, n, q_dtype)
@@ -464,17 +570,25 @@ def check_csr_quant(torch, ops, ref, comm_mod, dev, gen, flush):
             check(float(got[3][0]) == 0.0 and not bool(got[0][0].any())
                   and not bool(got[2][1].any()),
                   "csr_quant: all-zero row or stored = 0 mishandled")
+        if "one block" in label:
+            check(int(got[2][0, 7]) == 300 and int(got[2][1, 3_999]) > 0
+                  and not bool(got[2][1, 4_000:].any()),
+                  f"csr_quant {label}: block counts misplaced")
     shapes = []
-    nblk = -(-N_FULL // 512)
     for v, i, s in ((v6, i6, s6), (v1, i1, s1)):
-        k, stored = v.shape[0], int(s.sum())
-        shapes.append({"shape": [k, CAP_FULL], "n": N_FULL,
-                       "stored": stored, **_timed(
-            torch, lambda: ops.csr_quantize(v, i, s, N_FULL),
-            lambda: _quant_plain(ref, v, i, s, N_FULL, "int8"),
-            8 * stored + 4 * k + 3 * k * CAP_FULL + 2 * k * nblk + 4 * k,
-            6 * stored + 2 * k * CAP_FULL, reps=30, plain_reps=10,
-            flush=flush)})
+        sh = {"shape": list(v.shape), "n": N_FULL, **csr_quant_call(
+            torch, ops, v, i, s, N_FULL, "int8", flushes),
+            "plain_ms": time_ms(torch, lambda: _quant_plain(
+                ref, v, i, s, N_FULL, "int8"), reps=10,
+                flush=flushes.clean),
+            "library_ms": None}
+        log(f"  csr_quant {sh['shape']}: device {sh['device_ms']:.5f} ms in "
+            f"{sh['device_ops']:g} ops, host {sh['host_ms']:.5f} ms, bound "
+            f"{sh['bound_ms']:.5f} ms ({sh['bound_ms'] / sh['device_ms']:.0%}"
+            f" of it)")
+        check(sh["device_ops"] == 1, f"csr_quant {sh['shape']}: "
+              f"{sh['device_ops']} device ops a call, not 1")
+        shapes.append(sh)
     return {"name": "csr_quant", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/csr_quant.cu",
             "replaces": "src/repro/kernels/csr_quant.py:62",
@@ -613,7 +727,9 @@ def check_flash_attention(torch, ops, ref, dev, gen, s_serve):
             torch, lambda: ops.flash_attention(q, k, v),
             lambda: ref.flash_attention_plain(q, k, v), nbytes, flops,
             reps=reps, library=lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))}
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+                 **profile_call(torch, lambda: ops.flash_attention(q, k, v),
+                                reps=reps)}
         if bf16:   # the bound at the type's rate; beside it the float32 rule
             shape["bound_ms"], shape["bound_by"] = bound_ms(
                 nbytes, flops, BF16_OPS_PER_S)
@@ -1137,18 +1253,16 @@ def main():
     log("phase 3: kernels against their plain versions")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    scratch = torch.zeros(96 * 2**20 // 4, dtype=torch.int32,
-                          device=dev)                  # > 50 MB of L2
-
-    def flush():
-        torch.bitwise_not(scratch, out=scratch)
-
+    flushes = l2_flushes(torch, dev)
+    log(f"  L2 flushes: clean {flushes.clean.kernel[:70]}, write "
+        f"{flushes.write.kernel[:70]}")
     kernels = [*check_masked_pseudo_ce(torch, ops, ref, dev, gen),
-               check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flush),
-               check_staleness_agg(torch, ops, ref, dev, gen, flush),
-               check_sparse_delta(torch, ops, ref, dev, gen, flush),
-               check_csr_quant(torch, ops, ref, comm_mod, dev, gen, flush)]
-    del scratch
+               check_csr_compact(torch, ops, ref, comm_mod, dev, gen,
+                                 flushes),
+               check_staleness_agg(torch, ops, ref, dev, gen, flushes),
+               check_sparse_delta(torch, ops, ref, dev, gen, flushes),
+               check_csr_quant(torch, ops, ref, comm_mod, dev, gen, flushes)]
+    del flushes
     s_serve = max(len(p) for p in serve_prompts(
         np, get_config(SERVE_ARCH).vocab_size))
     kernels.append(check_flash_attention(torch, ops, ref, dev, gen, s_serve))
@@ -1159,6 +1273,11 @@ def main():
             per_call = "" if "device_ms" not in sh else (
                 f" (a call: device {sh['device_ms']:.5f} ms in "
                 f"{sh['device_ops']:g} ops, host {sh['host_ms']:.5f} ms)")
+            if "event_ms" in sh:
+                per_call += (f"; events {sh['event_ms']:.5f} ms; under the "
+                             f"writing flush device "
+                             f"{sh['device_ms_write_flush']:.5f} ms, events "
+                             f"{sh['event_ms_write_flush']:.5f} ms")
             log(f"  {k['name']} {sh['shape']}: kernel {sh['ms']:.5f} ms"
                 f"{per_call}, plain {sh['plain_ms']:.5f} ms, library "
                 f"{sh['library_ms']}, bound {sh['bound_ms']:.6f} ms "

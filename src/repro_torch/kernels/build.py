@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # launch function -> (source, argtypes); every one returns cudaError_t
+# (csr_quant_blocks a block count, or -cudaError_t)
 SIGNATURES = {
     "masked_pseudo_ce_launch": ("masked_pseudo_ce",
                                 (_P, _P, _P, _I, _I, _F, _P)),
@@ -37,8 +38,10 @@ SIGNATURES = {
     "staleness_agg_launch": ("staleness_agg", (_P, _P, _P, _I, _LL, _P)),
     "sparse_delta_launch": ("sparse_delta",
                             (_P, _P, _P, _P, _I, _LL, _I, _P)),
-    "csr_quant_launch": ("csr_quant", (_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                       _I, _I, _I, _P)),
+    "csr_quant_blocks": ("csr_quant", (_I,)),
+    "csr_quant_launch": ("csr_quant", (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _LL, _LL, _I, _I, _I, _I, _I,
+                                       _P)),
     "flash_attention_launch": ("flash_attention",
                                (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _F, _P)),

@@ -23,6 +23,8 @@ LAUNCHES = {"masked_pseudo_ce": 0, "masked_pseudo_ce_bwd": 0,
 MPCE_BWD_MAX_C = 1024     # torch.softmax's persistent-kernel range
 CSR_TILE = 8192           # kTile in csrc/csr_compact.cu
 CSR_EPOCHS = 1 << 29      # epochs a flag word's bits 34-62 hold
+CSRQ_TILE = 2048          # kTile in csrc/csr_quant.cu
+CSRQ_EPOCHS = 1 << 31     # epochs an absmax word's bits 32-62 hold
 Q_DTYPES = {"int8": torch.int8, "fp16": torch.float16}
 FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # -> the kernel's bf16 flag
 FLASH_HEAD_DIMS = (64, 128)
@@ -188,12 +190,53 @@ def csr_compact(x, thresholds, cap):
     return vals, idx, nnz
 
 
+_csrq_state = {}   # (device, stream) -> [words, starts, arrivals, epoch]
+_csrq_blocks = {}  # (device, fp16) -> co-resident blocks of the kernel
+
+
+def _csrq_workspace(dev, stream, k, nblk):
+    """``csr_quant``'s scratch on ``dev`` and ``stream``: int64 words, the
+    barrier's arrival counter and then one absmax word a row, and int32
+    room for the block starts (k, nblk + 1); with the arrivals of the calls
+    so far and a new epoch for this call. The words are made zero on first
+    use, when a call needs more room or when the epochs run out, and never
+    reset otherwise; they never share memory with the starts, so a row's
+    word holds nothing but absmax words of earlier epochs."""
+    key = (dev, stream)
+    state = _csrq_state.get(key)
+    if state is None or state[0].numel() < 1 + k or \
+            state[1].numel() < k * (nblk + 1) or \
+            state[3] + 1 >= CSRQ_EPOCHS:
+        state = [torch.zeros(1 + k, dtype=torch.int64, device=dev),
+                 torch.empty(k * (nblk + 1), dtype=torch.int32, device=dev),
+                 0, 0]
+        _csrq_state[key] = state
+    state[3] += 1
+    return state
+
+
+def _csrq_grid(dev, fp16, tiles):
+    """Blocks of one ``csr_quant`` launch: one a tile, at most as many as
+    are resident on the card at once (the cooperative launch's limit)."""
+    key = (dev, fp16)
+    blocks = _csrq_blocks.get(key)
+    if blocks is None:
+        with torch.cuda.device(dev):
+            blocks = build.kernel("csr_quant_blocks")(fp16)
+        if blocks <= 0:
+            raise RuntimeError(f"csr_quant_blocks failed: cudaError_t "
+                               f"{-blocks}")
+        _csrq_blocks[key] = blocks
+    return min(blocks, tiles)
+
+
 def csr_quantize(values, indices, stored, n, *, q_dtype="int8"):
     """Quantize and index-pack compacted CSR rows, the ``csr_q`` wire:
     (values (K, cap) f32, indices (K, cap) int32 ascending in each stored
     prefix, stored (K,) int32) -> (qvals (K, cap) int8 | f16, offsets
     (K, cap) int16, block_counts (K, ceil(n/512)) int16, scales (K,) f32),
-    the block counts over the stored prefix only."""
+    the block counts over the stored prefix only. On the card one launch
+    a call."""
     _check("values", values, 2)
     _check("indices", indices, 2, torch.int32)
     _check("stored", stored, 1, torch.int32)
@@ -214,20 +257,24 @@ def csr_quantize(values, indices, stored, n, *, q_dtype="int8"):
                                                q_dtype=q_dtype)
         offs, counts = ref.csr_pack_indices_ref(indices, stored, n)
         return qvals, offs, counts, scales
-    if K > 65535:
-        raise ValueError(f"at most 65535 rows per launch, got {K}")
     dev = values.device
     nblk = max((n + ref.BLK - 1) // ref.BLK, 1)
     qvals = torch.empty((K, cap), dtype=Q_DTYPES[q_dtype], device=dev)
     offs = torch.empty((K, cap), dtype=torch.int16, device=dev)
     counts = torch.empty((K, nblk), dtype=torch.int16, device=dev)
     scales = torch.empty(K, dtype=torch.float32, device=dev)
-    absmax = torch.zeros(K, dtype=torch.int32, device=dev)
     if K:
+        fp16 = int(q_dtype == "fp16")
+        grid = _csrq_grid(dev, fp16, K * -(-cap // CSRQ_TILE))
+        stream = _stream(values)
+        state = _csrq_workspace(dev, stream, K, nblk)
+        words = state[0].data_ptr()
         _launch("csr_quant_launch", values.data_ptr(), indices.data_ptr(),
-                stored.data_ptr(), absmax.data_ptr(), qvals.data_ptr(),
-                offs.data_ptr(), counts.data_ptr(), scales.data_ptr(), K,
-                cap, nblk, int(q_dtype == "fp16"), _stream(values))
+                stored.data_ptr(), qvals.data_ptr(), offs.data_ptr(),
+                counts.data_ptr(), scales.data_ptr(), words + 8, words,
+                state[1].data_ptr(), state[2], state[3] << 32, K, cap, nblk,
+                fp16, grid, stream)
+        state[2] += grid
         LAUNCHES["csr_quant"] += 1
     return qvals, offs, counts, scales
 

@@ -1,33 +1,42 @@
 #!/usr/bin/env python3
-"""A/B of the port's ``masked_pseudo_ce`` and ``csr_compact`` between two
-trees on one CUDA card, interleaved parent / change / change / parent.
+"""A/B of the port's FL kernels between two trees on one CUDA card,
+interleaved parent / change / change / parent.
 
     python3 tools/kernel_ab.py --parent DIR [--out build/kernel_ab]
 
 ``DIR`` is a checkout of the parent commit (``git archive <commit> | tar
 -x -C DIR``); the change is the tree this script lies in. Each run is one
 process that imports ``repro_torch`` from its tree and measures it with
-this tree's ``chip_smoke.py`` helpers, so both sides are timed alike:
+this tree's ``chip_smoke.py`` helpers, so both sides are timed alike (the
+L2 flushed before each timed call by ``chip_smoke.l2_flushes``' clean
+flush, which leaves no dirty line to write back):
 
 - ``masked_pseudo_ce``, forward and backward through autograd as a client
   step runs them, at (600, 9) and (100, 9): device time and device ops a
   call (torch.profiler), host time a call, and the bound (logits and g
   read once; loss, mask and gradient written once);
 - ``csr_compact`` at the batched upload (6, N), the sequential upload
-  (1, N) and the EF residual (6, N): the same, plus CUDA-event time with
-  the L2 flushed, the bound counting every slot of vals and idx;
+  (1, N) and the EF residual (6, N): the same (``chip_smoke.
+  memory_bound_call``: also the device time under the writing flush and
+  CUDA-event times), the bound counting every slot of vals and idx;
+- ``csr_quant`` at the batched upload (6, cap) and the sequential upload
+  (1, cap), int8 and fp16, on ``csr_compact`` payloads: the same, the
+  bound counting the stored prefix read and every output slot written;
 - the six FL paths of ``chip_smoke.py`` phase 5: accuracy, ACO, seconds
   per round and launch counts.
 
 It fails unless the change gives the parent's bits: loss, mask and
 gradient of ``masked_pseudo_ce`` at (600, 9), (100, 9), (4096, 9) and
-(300, 40) with tie and at-threshold rows, and every path's accuracy and
-ACO; and unless the launch counts keep their meaning. It writes
-``<out>.json`` and prints a summary.
+(300, 40) with tie and at-threshold rows; q, offsets, block counts and
+scales of ``csr_quant`` at both shapes in both types; and every path's
+accuracy and ACO; and unless the launch counts keep their meaning
+(``csr_quant`` and ``csr_compact`` at ``chip_smoke.PER_ROUND``'s counts a
+round on both trees). It writes ``<out>.json`` and prints a summary.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -36,16 +45,25 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke as cs  # noqa: E402
+
 MPCE_SHAPES = ((600, 9), (100, 9), (4096, 9), (300, 40))
 
 
+def _digest(t):
+    """Type, shape and a SHA-256 of a tensor's bytes: equal digests mean
+    equal bits."""
+    import torch
+    data = t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
+    return f"{t.dtype} {tuple(t.shape)} {hashlib.sha256(data).hexdigest()}"
+
+
 def run_tree(tree, out):
-    """Measure one tree; write ``out`` (JSON) and ``out`` .pt (the
-    masked_pseudo_ce outputs)."""
-    sys.path.insert(0, str(ROOT))
+    """Measure one tree; write ``out`` (JSON, with digests of the outputs
+    the trees must share)."""
     sys.path.insert(0, str(Path(tree).resolve() / "src"))
     import torch
-    import chip_smoke as cs
     from repro_torch.core import sparse_comm as comm_mod
     from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
     from repro_torch.data import make_dataset
@@ -57,25 +75,20 @@ def run_tree(tree, out):
     build.build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    scratch = torch.zeros(96 * 2**20 // 4, dtype=torch.int32, device=dev)
-
-    def flush():
-        torch.bitwise_not(scratch, out=scratch)
-
+    flushes = cs.l2_flushes(torch, dev)
     outputs, mpce = {}, []
     for n, c in MPCE_SHAPES:
         logits = cs._mpce_logits(torch, gen, dev, n, c)
         g = torch.rand((n,), generator=gen, device=dev)
         loss, mask, grad = cs._mpce_call(torch, ops.masked_pseudo_ce, None,
                                          logits, g)
-        outputs[f"{n}x{c}"] = [t.detach().cpu() for t in (loss, mask, grad)]
+        outputs[f"mpce {n}x{c}"] = [_digest(t) for t in (loss, mask, grad)]
         if (n, c) in MPCE_SHAPES[:2]:
             b, by = cs.bound_ms(8 * n * c + 12 * n, 11 * n * c + 7 * n)
             mpce.append({"shape": [n, c], **cs.profile_call(
                 torch, lambda: cs._mpce_call(torch, ops.masked_pseudo_ce,
                                              None, logits, g), reps=200),
                 "bound_ms": b, "bound_by": by})
-    torch.save(outputs, Path(out).with_suffix(".pt"))
 
     x6 = cs._delta(torch, gen, dev, 6, cs.N_FULL)
     thr6 = comm_mod.local_quantile_thresholds(x6, 0.2)
@@ -92,9 +105,22 @@ def run_tree(tree, out):
         cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
                  f"csr_compact {case} differs from its plain version")
         csr.append({"case": case, "shape": list(x.shape), "cap": cap,
-                    **cs.csr_compact_call(torch, ops, ref, x, thr, cap,
-                                          flush)})
-    del x6, xres, scratch
+                    **cs.csr_compact_call(torch, ops, x, thr, cap,
+                                          flushes)})
+    v6, i6, s6 = cs.quant_payload(torch, ops, comm_mod, x6, 0.2, cs.CAP_FULL)
+    quant = []
+    for case, v, i, s in (
+            ("batched upload", v6, i6, s6),
+            ("sequential upload", v6[:1].clone(), i6[:1].clone(),
+             s6[:1].clone())):
+        for q_dtype in ("int8", "fp16"):
+            got = ops.csr_quantize(v, i, s, cs.N_FULL, q_dtype=q_dtype)
+            outputs[f"csr_quant {case} {q_dtype}"] = [_digest(t)
+                                                      for t in got]
+            quant.append({"case": case, "shape": list(v.shape), **
+                          cs.csr_quant_call(torch, ops, v, i, s, cs.N_FULL,
+                                            q_dtype, flushes)})
+    del x6, xres, v6, i6, s6, flushes
 
     paths = {}
     for engine, wire, ef in cs.PATHS:
@@ -115,12 +141,12 @@ def run_tree(tree, out):
         del tr
     Path(out).write_text(json.dumps({
         "tree": str(tree), "masked_pseudo_ce": mpce, "csr_compact": csr,
-        "paths": paths}))
+        "csr_quant": quant, "paths": paths, "outputs": outputs}))
 
 
-def _same_outputs(torch, a, b):
-    return {shape: all(torch.equal(x.view(torch.int32), y.view(torch.int32))
-                       for x, y in zip(a[shape], b[shape])) for shape in a}
+def _same_outputs(a, b):
+    """Per case: every output's type, shape and bits equal."""
+    return {case: a[case] == b.get(case) for case in a}
 
 
 def main():
@@ -155,26 +181,29 @@ def main():
                   f"device {m['device_ms']:.5f} ms in {m['device_ops']:g} "
                   f"ops, host {m['host_ms']:.5f} ms, bound "
                   f"{m['bound_ms']:.7f} ms", flush=True)
-        for m in r["csr_compact"]:
-            print(f"    csr_compact {m['case']} {m['shape']}: events "
-                  f"{m['ms']:.5f} ms, device {m['device_ms']:.5f} ms in "
-                  f"{m['device_ops']:g} ops, host {m['host_ms']:.5f} ms, "
-                  f"bound {m['bound_ms']:.5f} ms", flush=True)
+        for key in ("csr_compact", "csr_quant"):
+            for m in r[key]:
+                print(f"    {key} {m['case']} {m['shape']} "
+                      f"{m.get('q_dtype', '')}: device "
+                      f"{m['device_ms']:.5f} ms in {m['device_ops']:g} ops, "
+                      f"host {m['host_ms']:.5f} ms, events "
+                      f"{m['event_ms']:.5f} ms; under the writing flush "
+                      f"device {m['device_ms_write_flush']:.5f} ms, events "
+                      f"{m['event_ms_write_flush']:.5f} ms; bound "
+                      f"{m['bound_ms']:.5f} ms", flush=True)
         for name, p in r["paths"].items():
             print(f"    {name}: {p['s_per_round']:.4f} s per round, accuracy "
                   f"{p['accuracy']:.6f}, ACO {p['aco']:.6f}, launches "
                   f"{p['launches']}", flush=True)
 
-    import torch
     failures = []
     base = runs[0]
     for label, part, r in runs[1:]:
-        same = _same_outputs(torch, torch.load(base[1].with_suffix(".pt")),
-                             torch.load(part.with_suffix(".pt")))
-        print(f"  {label} against the first parent run: masked_pseudo_ce "
-              f"loss, mask and gradient bit-equal {same}", flush=True)
-        if not all(same.values()):
-            failures.append(f"{label}: masked_pseudo_ce outputs differ")
+        same = _same_outputs(base[2]["outputs"], r["outputs"])
+        print(f"  {label} against the first parent run: outputs "
+              f"bit-equal {same}", flush=True)
+        failures += [f"{label}: {case} outputs differ"
+                     for case, ok in same.items() if not ok]
         for name, p in r["paths"].items():
             q = base[2]["paths"][name]
             if (p["accuracy"], p["aco"]) != (q["accuracy"], q["aco"]):
@@ -190,17 +219,28 @@ def main():
                     lp["masked_pseudo_ce_bwd"] != lp["masked_pseudo_ce"]:
                 failures.append(f"{name}: backward launches "
                                 f"{lp['masked_pseudo_ce_bwd']}")
+    per_path = {cs.path_name(*k): v for k, v in cs.PER_ROUND.items()}
+    for label, _, r in runs:
+        for path, p in r["paths"].items():
+            for kernel, per_round in per_path.get(path, {}).items():
+                if p["launches"][kernel] != 3 * per_round:
+                    failures.append(f"{label} {path}: {kernel} launched "
+                                    f"{p['launches'][kernel]} times in 3 "
+                                    f"rounds, not {per_round} a round")
 
     def median(label, key, i, field):
         return statistics.median(r[key][i][field] for lb, _, r in runs
                                  if lb == label)
     summary = {"gpu": smi, "runs": [{"label": lb, "file": str(p)}
                                     for lb, p, _ in runs], "median": {}}
-    for key in ("masked_pseudo_ce", "csr_compact"):
+    for key in ("masked_pseudo_ce", "csr_compact", "csr_quant"):
         for i, m in enumerate(runs[0][2][key]):
-            what = f"{key} {m.get('case', '')} {m['shape']}".replace("  ", " ")
+            what = f"{key} {m.get('case', '')} {m['shape']} " \
+                f"{m.get('q_dtype', '')}".replace("  ", " ").strip()
             row = {lb: {f: median(lb, key, i, f) for f in
-                        ("device_ms", "device_ops", "host_ms")}
+                        ("device_ms", "device_ops", "host_ms",
+                         "device_ms_write_flush", "event_ms",
+                         "event_ms_write_flush") if f in m}
                    for lb in ("parent", "change")}
             row["bound_ms"] = m["bound_ms"]
             summary["median"][what] = row
