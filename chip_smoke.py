@@ -31,6 +31,11 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    the batched engine against the sequential one, both on the card, with
    the default dropout, on the p0.2 wire, with the absolute threshold, and
    on the csr_q wire with error feedback;
+4c. run the paper's four comparison baselines (FedAvg-SSL partial and
+   all, FedAsync-SSL, Local-SSL) on the card and on the CPU at full width
+   from the same initial weights (dropout 0, scale 0.02, 2 rounds,
+   FedAsync-SSL 8 arrivals): selections, arrivals, ART, forced syncs and
+   ACO exact, parameters within atol 1e-4 / rtol 1e-3, metrics 1e-4;
 5. drive six paths at full width, ``FedS3ATrainer(make_dataset("basic",
    scale=0.02), FedS3AConfig(rounds=3, engine=..., wire_format=...,
    error_feedback=...))`` on the card: sequential + csr, batched + csr
@@ -42,26 +47,45 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    ``csr_compact`` (and on the csr_q paths ``csr_quant``) other than its
    exact count a round; then run one more round of each path
    under ``torch.profiler`` and print the device's busy share and its
-   heaviest kernels;
+   heaviest kernels; then three paths with the participant-paged client
+   store (sequential and batched csr_q + EF, batched dense_masked + EF),
+   each right after its resident twin under the same launch rules, and
+   fail unless the two are equal bit for bit (accuracy, ACO, participants
+   a round, a digest of the global parameters);
+5c. run the four baselines at full width on the card (dropout 0.1, 3
+   rounds, FedAsync-SSL 12 arrivals): ``masked_pseudo_ce`` (and its
+   backward) once a client step, ``staleness_agg`` once a FedAvg round and
+   never otherwise, no compaction kernel;
+5d. the fleet, batched + csr + EF on ``make_fleet_dataset(M, pool=64,
+   scale=0.001)``: M = 1,000 at full width with 64 participants a round,
+   resident then paged, bit for bit; then M = 1,000,000 at the fleet width
+   (conv 8/8, hidden 16) with 512 participants, paged (1 warm-up round, 2
+   timed), whose client state on the device must equal that of M = 1,000
+   with the same participants;
 6. serve qwen2-1.5b at full width (random weights, bf16): 8 requests
    of 512-2048 tokens, bucket 2048, 32 new tokens, through
    ``serve_batch`` with the flash kernel, the counters showing exactly
    one ``flash_attention`` launch per layer per call; the prefill's last
    logits with the kernel against the plain attention on the card, and a
    2-layer float32 model of the same width on the card against the CPU;
-7. print one ``{"kernels": [...], "paths": ..., "serve": ...}`` line,
-   then the result line ``{"ok": true, "device": {...}}`` last.
+7. print one ``{"kernels": [...], "paths": ..., "serve": ...,
+   "baselines": ..., "fleet": ...}`` line, then the result line
+   ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
 port's sources are missing. It imports nothing from the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -410,7 +434,9 @@ def check_csr_compact(torch, ops, ref, comm_mod, dev, gen, flushes):
 
 def check_staleness_agg(torch, ops, ref, dev, gen, flushes):
     worst, shapes = 0.0, []
-    for k in (6, 3):
+    # (6, N): the batched base sum and FedAvg-SSL-Partial; (3, N): the
+    # sequential group sums; (10, N): FedAvg-SSL-All's ten clients
+    for k in (6, 3, 10):
         d = torch.randn((k, N_FULL), generator=gen, device=dev) * 1e-2
         w = torch.rand((k,), generator=gen, device=dev)
         w = w / w.sum()
@@ -936,19 +962,67 @@ PER_ROUND = {
 }
 
 
-def path_name(engine, wire, ef):
-    return f"{engine}+{wire}" + ("+ef" if ef else "")
+# phase 5's paged paths, each right after its resident twin; the dense_masked
+# one needs a resident twin with EF, which the six paths do not have
+PAGED_PATHS = (("sequential", "csr_q", True), ("batched", "csr_q", True),
+               ("batched", "dense_masked", True))
+PATH_KERNELS = {**PATHS, ("batched", "dense_masked", True): DENSE_KERNELS}
 
 
-def drive_path(torch, port, ops, engine, wire, ef, rounds=3):
+def path_name(engine, wire, ef, store="resident"):
+    return f"{engine}+{wire}" + ("+ef" if ef else "") + \
+        ("+paged" if store == "paged" else "")
+
+
+def params_digest(port, tr):
+    """SHA-256 of the global parameters' bytes, in name order."""
+    h = hashlib.sha256()
+    for name, v in sorted(port.params_to_numpy(tr.global_params).items()):
+        h.update(name.encode())
+        h.update(v.tobytes())
+    return h.hexdigest()
+
+
+def check_launches(launches, kernels, name, per_round=None, rounds=1):
+    """Every kernel of the path launched, none off it, the
+    ``masked_pseudo_ce`` backward once a forward, and the exact counts a
+    round of ``per_round``."""
+    for kernel, count in launches.items():
+        if kernel in kernels:
+            check(count > 0, f"kernel {kernel} never launched on {name}")
+        else:
+            check(count == 0, f"kernel {kernel} launched {count} times off "
+                  f"its path ({name})")
+    check(launches["masked_pseudo_ce_bwd"] == launches["masked_pseudo_ce"],
+          f"{name}: {launches['masked_pseudo_ce_bwd']} backward launches "
+          f"for {launches['masked_pseudo_ce']} forward ones")
+    for kernel, count in (per_round or {}).items():
+        check(launches[kernel] == count * rounds,
+              f"{kernel} launched {launches[kernel]} times on {name}, "
+              f"expected {count} a round")
+
+
+def store_seconds(tr):
+    """Host seconds the paged store spent in the run (its own ``seconds``:
+    ``drain_s`` draining its write queue, waits for the device-to-host
+    copies included, ``window_s`` gathering windows and enqueuing their
+    copies); None for the resident store."""
+    if not tr.paged:
+        return None
+    return dict(tr.cstore.seconds)
+
+
+def drive_path(torch, port, ops, engine, wire, ef, rounds=3,
+               store="resident"):
     import numpy as np
     data = port.make_dataset("basic", scale=0.02)
     cfg = port.FedS3AConfig(rounds=rounds, wire_format=wire,
-                            error_feedback=ef)
+                            error_feedback=ef, client_store=store)
     if (engine, wire, ef) != DEFAULT_PATH:
         cfg.engine = engine
     ops.reset_launches()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tr = port.FedS3ATrainer(data, cfg)
     torch.cuda.synchronize()
@@ -956,8 +1030,10 @@ def drive_path(torch, port, ops, engine, wire, ef, rounds=3):
     out = tr.train()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    store_s = store_seconds(tr)
     launches = dict(ops.LAUNCHES)
-    name = path_name(engine, wire, ef)
+    peak = torch.cuda.max_memory_allocated()
+    name = path_name(engine, wire, ef, store)
     check(tr.engine == engine, f"{name} ran {tr.engine}")
     n = port.cnn_param_count(tr.cnn)
     check(n == N_FULL, f"paper CNN has {n} parameters, expected {N_FULL}")
@@ -971,24 +1047,46 @@ def drive_path(torch, port, ops, engine, wire, ef, rounds=3):
           f"metrics out of range: {m}")
     check(0.0 < out["aco"] < 1.0, f"ACO out of range: {out['aco']}")
     s_round = (t2 - t1) / rounds
+    state = tr.client_state_device_bytes()
     log(f"  {name}: {rounds} rounds, N = {n}: set-up (warm-up) "
         f"{t1 - t0:.3f} s, {s_round:.3f} s per round, accuracy "
-        f"{m['accuracy']:.6f}, ACO {out['aco']:.6f}; launches {launches}")
-    for kernel, count in launches.items():
-        if kernel in PATHS[(engine, wire, ef)]:
-            check(count > 0, f"kernel {kernel} never launched on {name}")
-        else:
-            check(count == 0, f"kernel {kernel} launched {count} times off "
-                  f"its path ({name})")
-    check(launches["masked_pseudo_ce_bwd"] == launches["masked_pseudo_ce"],
-          f"{name}: {launches['masked_pseudo_ce_bwd']} backward launches "
-          f"for {launches['masked_pseudo_ce']} forward ones")
-    for kernel, per_round in PER_ROUND.get((engine, wire, ef), {}).items():
-        check(launches[kernel] == per_round * rounds,
-              f"{kernel} launched {launches[kernel]} times on {name}, "
-              f"expected {per_round} a round")
+        f"{m['accuracy']:.6f}, ACO {out['aco']:.6f}; client state on the "
+        f"device {state} B, peak device memory {peak} B; "
+        + ("" if store_s is None else
+           f"paged store host s a round: drain "
+           f"{store_s['drain_s'] / rounds:.4f}, windows "
+           f"{store_s['window_s'] / rounds:.4f}; ")
+        + f"launches {launches}")
+    check_launches(launches, PATH_KERNELS[(engine, wire, ef)], name,
+                   PER_ROUND.get((engine, wire, ef)), rounds)
     return tr, launches, {"s_per_round": s_round, "setup_s": t1 - t0,
-                          "accuracy": m["accuracy"], "aco": out["aco"]}
+                          "accuracy": m["accuracy"], "aco": out["aco"],
+                          "client_state_device_bytes": state,
+                          "peak_device_bytes": peak,
+                          "store_host_s": store_s}
+
+
+def paged_twins(torch, port, ops, engine, wire, ef):
+    """The path resident, then paged, in one process: the paged run must
+    be its twin's bit for bit (accuracy, ACO, participants a round, the
+    global parameters' bytes), with the same launch rules."""
+    out = {}
+    for store in ("resident", "paged"):
+        tr, launches, res = drive_path(torch, port, ops, engine, wire, ef,
+                                       store=store)
+        res.update(launches=launches, digest=params_digest(port, tr),
+                   participants=[len(log.participants) for log in tr.logs])
+        out[store] = res
+        del tr
+        torch.cuda.empty_cache()
+    a, b = out["resident"], out["paged"]
+    name = path_name(engine, wire, ef, "paged")
+    same = {k: a[k] == b[k] for k in ("accuracy", "aco", "participants",
+                                      "digest", "launches")}
+    log(f"  {name} against its resident twin: {same}")
+    check(all(same.values()), f"{name} differs from its resident twin: "
+          f"{same}")
+    return out
 
 
 def profile_round(torch, fn, what="round"):
@@ -1022,6 +1120,447 @@ def profile_round(torch, fn, what="round"):
             "launches": sum(r[1] for r in rows),
             "top": [{"ms": ms, "count": count, "kernel": key[:90]}
                     for ms, count, key in rows[:5]]}
+
+
+# -- phases 4c and 5c: the paper's comparison baselines --------------------
+# (name, class, keywords); FedAvg-SSL launches staleness_agg once a round
+BASELINES = (("fedavg-ssl-partial", "FedAvgSSL", {"mode": "partial"}),
+             ("fedavg-ssl-all", "FedAvgSSL", {"mode": "all"}),
+             ("fedasync-ssl", "FedAsyncSSL", {}),
+             ("local-ssl", "LocalSSL", {}))
+BASELINE_KERNELS = ("masked_pseudo_ce", "masked_pseudo_ce_bwd")
+
+
+def _events(tr):
+    """What a baseline's schedule consists of: FedAvg-SSL's selections,
+    FedAsync-SSL's arrivals in event order."""
+    return getattr(tr, "selections", None) or getattr(tr, "arrivals", None)
+
+
+def baseline_run(torch, port, ops, cls, kw, dev, rounds, init=None):
+    """One baseline from ``make_dataset("basic", scale=0.02)``, its launch
+    counters reset just before it; the client steps its run took are
+    counted by wrapping its client epoch."""
+    data = port.make_dataset("basic", scale=0.02, seed=0)
+    ops.reset_launches()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = getattr(port.baselines, cls)(
+        data, port.FedS3AConfig(rounds=rounds, device=dev),
+        init_params=init, **kw)
+    steps, inner = [0], tr.client_epoch
+    B = tr.cfg.batch_size
+
+    def counted(params, opt, x, lr, masks):
+        steps[0] += max((len(x) + B - 1) // B, 1)
+        return inner(params, opt, x, lr, masks)
+
+    tr.client_epoch = counted
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = tr.train()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return SimpleNamespace(tr=tr, out=out, steps=steps[0],
+                           launches=dict(ops.LAUNCHES), setup_s=t1 - t0,
+                           s_per_round=(t2 - t1) / rounds,
+                           params=port.params_to_numpy(tr.global_params))
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _update_gap(torch, new, ref_new, old, tol):
+    """How far one step's update on the card, ``new - old``, is from the
+    CPU's, ``ref_new - old`` (all on the card): (||gap||^2, ||CPU
+    update||^2, the share of elements whose update differs by more than
+    ``tol``)."""
+    gap2 = upd2 = 0.0
+    off = n = 0
+    for k in old:
+        gap = new[k] - ref_new[k]
+        upd = ref_new[k] - old[k]
+        gap2 += float(gap.double().square().sum())
+        upd2 += float(upd.double().square().sum())
+        off += int((gap.abs() > tol).sum())
+        n += gap.numel()
+    return gap2, upd2, off / n
+
+
+def _rel(gap2, upd2):
+    return math.sqrt(gap2 / upd2) if upd2 else math.inf
+
+
+# Local-SSL's update bounds (phase 4c). A card step's update may differ
+# from the CPU's by at most STEP_REL (||gap|| / ||update||), and in at
+# most STEP_SHARE of the elements by more than a tenth of the learning
+# rate; over the run, sqrt(sum ||gap||^2 / sum ||update||^2) at most
+# RUN_REL. Set from a run on an H100 (PERF.md §6): sound steps read at
+# most 6.25e-4 and 1.64e-4, median 2.3e-6; a skipped step reads 1 and
+# 0.58; the mask flipped on 2 rows moves a single step by as little as
+# 4e-8 (a confident row's loss has almost no gradient), so it is held
+# over the run instead.
+STEP_REL, STEP_SHARE, RUN_REL = 5e-3, 1e-3, 5e-3
+PLANT_ROWS = 2              # rows whose pseudo-label mask the plant flips
+
+
+def _flipped_mask_loss(torch, real, rows, n_valid):
+    """``masked_pseudo_ce`` with the pseudo-label mask flipped on the
+    ``rows`` least confident of the batch's first ``n_valid`` (real) rows:
+    a row it leaves out gets its pseudo-label CE, a row it keeps loses
+    its loss."""
+    def mpce(logits, threshold):
+        loss, mask = real(logits, threshold)
+        conf = torch.softmax(logits[:n_valid].detach(), dim=-1).amax(dim=-1)
+        pick = conf.argsort()[:rows]
+        ce = -torch.log_softmax(logits[pick], dim=-1).amax(dim=-1)
+        on = mask[pick] > 0
+        return (loss.index_put((pick,), torch.where(on, 0.0 * ce, ce)),
+                mask.index_put((pick,), (~on).to(mask.dtype)))
+    return mpce
+
+
+def local_ssl_stepwise(torch, port, init, cpu_run, rounds=2):
+    """Local-SSL card against CPU one update at a time. Its run is 2 x
+    (a 5-step server epoch + a 91-step client epoch over the pooled data)
+    on one model; a free run on the card drifts from the CPU's past atol
+    1e-4 / rtol 1e-3 (printed), and an end-point bound cannot tell that
+    drift from a fault, since one Adam step moves an element by about lr
+    = 1e-4. So each update is held instead: the card takes the step from
+    the CPU's state (parameters and both Adam states), and its update is
+    compared with the CPU's (``_update_gap``): every step within
+    ``STEP_REL`` / ``STEP_SHARE``, the run within ``RUN_REL``. Controls,
+    taken from the same states: a skipped step must leave the step bounds
+    at every step, and the steps taken with the pseudo-label mask flipped
+    on ``PLANT_ROWS`` rows must leave the run bound. The steps follow
+    ``LocalSSL.train``'s schedule (one Adam step a batch; a server epoch
+    is one unit): the CPU's last state must be ``cpu_run``'s parameters (a
+    whole ``train()`` on the CPU) bit for bit."""
+    import numpy as np
+    from repro_torch.core import pseudo_label
+    from repro_torch.optimizer import adam_init
+    c, g = (port.baselines.LocalSSL(
+        port.make_dataset("basic", scale=0.02, seed=0),
+        port.FedS3AConfig(rounds=rounds, device=dev), init_params=init)
+        for dev in ("cpu", "cuda"))
+    dev = g.device
+    B, lr = c.cfg.batch_size, c.cfg.lr
+    tol = 0.1 * lr
+    x_all = np.concatenate([cl["x"] for cl in c.data["clients"]])
+    sx, sy = c.data["server"]["x"], c.data["server"]["y"]
+    nb = (len(x_all) + B - 1) // B
+    cpu = [c.global_params, adam_init(c.global_params),
+           adam_init(c.global_params)]
+    real_ops = pseudo_label.kops
+    runs = {"sound": [], "skipped": [], "mask_flip": []}
+    for _ in range(rounds):
+        units = [None] + [x_all[b * B:(b + 1) * B] for b in range(nb)]
+        for xb in units:
+            def step(tr, st):
+                if xb is None:        # the server epoch, Adam state 1
+                    p, o, _ = tr.server_epoch(st[0], st[1], sx, sy, lr, None)
+                    return [p, o, st[2]]
+                p, o, _ = tr.client_epoch(st[0], st[2], xb, lr, None)
+                return [p, st[1], o]
+            start = [_to(t, dev) for t in cpu]
+            taken = {"sound": step(g, start)[0], "skipped": start[0]}
+            if xb is not None:
+                pseudo_label.kops = SimpleNamespace(
+                    masked_pseudo_ce=_flipped_mask_loss(
+                        torch, real_ops.masked_pseudo_ce, PLANT_ROWS,
+                        len(xb)))
+                try:
+                    taken["mask_flip"] = step(
+                        g, [_to(t, dev) for t in cpu])[0]
+                finally:
+                    pseudo_label.kops = real_ops
+            cpu = step(c, cpu)
+            ref = _to(cpu[0], dev)
+            for what, p in taken.items():
+                runs[what].append(_update_gap(torch, p, ref, start[0], tol))
+    out = {"steps": len(runs["sound"]), "tol": tol, "step_rel_bound":
+           STEP_REL, "step_share_bound": STEP_SHARE, "run_rel_bound":
+           RUN_REL, "plant_rows": PLANT_ROWS}
+    for what, seen in runs.items():
+        rels = [_rel(g2, u2) for g2, u2, _ in seen]
+        out[what] = {
+            "run_rel": _rel(sum(x[0] for x in seen), sum(x[1] for x in seen)),
+            "step_rel_min": min(rels), "step_rel_median":
+            statistics.median(rels), "step_rel_max": max(rels),
+            "step_share_min": min(x[2] for x in seen),
+            "step_share_max": max(x[2] for x in seen),
+            "steps_outside": sum(r > STEP_REL or x[2] > STEP_SHARE
+                                 for r, x in zip(rels, seen))}
+    so, sk, mf = out["sound"], out["skipped"], out["mask_flip"]
+    log(f"  local-ssl update by update, card vs CPU: {out['steps']} updates "
+        f"(server epochs counted as one); the card's update off the CPU's "
+        f"by {so['step_rel_median']:.3g} median, {so['step_rel_max']:.3g} "
+        f"most (relative norm; bound {STEP_REL:g}), at most "
+        f"{so['step_share_max']:.3g} of the elements by > {tol:g} (bound "
+        f"{STEP_SHARE:g}), {so['run_rel']:.3g} over the run (bound "
+        f"{RUN_REL:g}). Planted: a skipped step at least "
+        f"{sk['step_rel_min']:.3g} / {sk['step_share_min']:.3g}, outside at "
+        f"{sk['steps_outside']} of {out['steps']} steps; the mask flipped "
+        f"on {PLANT_ROWS} rows {mf['run_rel']:.3g} over the run, a step "
+        f"{mf['step_rel_min']:.3g} to {mf['step_rel_max']:.3g}, outside the "
+        f"step bounds at {mf['steps_outside']} of {len(runs['mask_flip'])}")
+    # read out whole before any check, so a failing run still shows them
+    for i, (g2, u2, share) in enumerate(runs["sound"]):
+        check(_rel(g2, u2) <= STEP_REL and share <= STEP_SHARE,
+              f"Local-SSL step {i}: the card's update from the CPU's state "
+              f"is {_rel(g2, u2):.3g} off (relative norm), {share:.3g} of "
+              f"the elements off by more than {tol:g}")
+    check(so["run_rel"] <= RUN_REL, f"Local-SSL: the card's updates are "
+          f"{so['run_rel']:.3g} off the CPU's over the run")
+    check(sk["steps_outside"] == out["steps"],
+          "Local-SSL: a planted skipped step stays inside the step bounds")
+    check(mf["run_rel"] > RUN_REL, "Local-SSL: the planted mask flip stays "
+          "inside the run bound")
+    check(all(np.array_equal(v, cpu_run[k]) for k, v in
+              port.params_to_numpy(cpu[0]).items()),
+          "Local-SSL: the steps do not replay LocalSSL.train")
+    return out
+
+
+def baselines_gpu_vs_cpu(torch, port, ops, rounds=2):
+    """Phase 4c: each baseline on the card and on the CPU at full width
+    from the same initial weights, ``CNN_CONFIG`` set to dropout 0 for this
+    check only: selections, arrivals, ART, forced syncs and ACO exact; for
+    FedAvg-SSL and FedAsync-SSL global parameters within atol 1e-4 / rtol
+    1e-3 and metrics within 1e-4; Local-SSL's whole run is printed and its
+    every update held to the CPU's (``local_ssl_stepwise``)."""
+    import numpy as np
+    full = port.baselines.CNN_CONFIG
+    cnn = dataclasses.replace(full, dropout=0.0)
+    gen = torch.Generator().manual_seed(2)
+    init = port.params_to_numpy(port.init_cnn(cnn, gen))
+    port.baselines.CNN_CONFIG = cnn
+    out = {}
+    try:
+        for name, cls, kw in BASELINES:
+            r = 4 * rounds if cls == "FedAsyncSSL" else rounds
+            g, c = (baseline_run(torch, port, ops, cls, kw, dev, r, init)
+                    for dev in ("cuda", "cpu"))
+            worst, outside, total = _param_diff(np, g.params, c.params)
+            mdiff = max(abs(g.out["metrics"][k] - c.out["metrics"][k])
+                        for k in g.out["metrics"])
+            same_art = g.out["art"] == c.out["art"] or (
+                math.isnan(g.out["art"]) and math.isnan(c.out["art"]))
+            same_aco = g.out["aco"] == c.out["aco"] or (
+                math.isnan(g.out["aco"]) and math.isnan(c.out["aco"]))
+            log(f"  {name}, card vs CPU, {r} rounds: schedule equal "
+                f"{_events(g.tr) == _events(c.tr)}, ART equal {same_art}, "
+                f"forced syncs {g.out.get('forced_syncs')} / "
+                f"{c.out.get('forced_syncs')}, max |diff| {worst:.3g} "
+                f"({outside} of {total} outside atol 1e-4 + rtol 1e-3), "
+                f"max |metric diff| {mdiff:.3g}, ACO equal {same_aco}; "
+                f"card {g.s_per_round:.3f} s a round, CPU "
+                f"{c.s_per_round:.3f}")
+            check(_events(g.tr) == _events(c.tr),
+                  f"{name}: schedules differ between card and CPU")
+            check(same_art and same_aco, f"{name}: ART or ACO differ")
+            check(g.out.get("forced_syncs") == c.out.get("forced_syncs"),
+                  f"{name}: forced syncs differ")
+            if cls == "LocalSSL":
+                out[name] = {"free_run_diff": worst, "free_run_outside":
+                             outside, "free_run_metric_diff": mdiff,
+                             **local_ssl_stepwise(torch, port, init,
+                                                  c.params, rounds)}
+                continue
+            check(outside == 0, f"{name}: parameters differ past atol 1e-4 "
+                  "+ rtol 1e-3")
+            check(mdiff < 1e-4, f"{name}: metrics differ by {mdiff}")
+            out[name] = {"max_diff": worst, "metric_diff": mdiff}
+    finally:
+        port.baselines.CNN_CONFIG = full
+    return out
+
+
+def baselines_full_width(torch, port, ops, rounds=3):
+    """Phase 5c: each baseline on the card at full width with the paper's
+    dropout: one ``masked_pseudo_ce`` launch (and one backward) a client
+    step, ``staleness_agg`` once a FedAvg round and never otherwise, no
+    compaction kernel."""
+    import numpy as np
+    out = {}
+    for name, cls, kw in BASELINES:
+        r = 4 * rounds if cls == "FedAsyncSSL" else rounds
+        b = baseline_run(torch, port, ops, cls, kw, "cuda", r)
+        m, la = b.out["metrics"], b.launches
+        n = sum(v.size for v in b.params.values())
+        check(n == N_FULL, f"{name} has {n} parameters, expected {N_FULL}")
+        check(all(np.isfinite(v).all() for v in b.params.values()),
+              f"{name}: non-finite global parameters")
+        check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()),
+              f"{name}: metrics out of range: {m}")
+        fedavg = cls == "FedAvgSSL"
+        kernels = BASELINE_KERNELS + (("staleness_agg",) if fedavg else ())
+        check_launches(la, kernels, name,
+                       {"staleness_agg": 1} if fedavg else None, r)
+        check(la["masked_pseudo_ce"] == b.steps,
+              f"{name}: {la['masked_pseudo_ce']} masked_pseudo_ce launches "
+              f"for {b.steps} client steps")
+        log(f"  {name}: {r} rounds, {b.s_per_round:.3f} s a round (set-up "
+            f"{b.setup_s:.3f} s), accuracy {m['accuracy']:.6f}, F1 "
+            f"{m['f1']:.6f}, FPR {m['fpr']:.6f}, ART {b.out['art']:.3f}, "
+            f"ACO {b.out['aco']}, forced syncs "
+            f"{b.out.get('forced_syncs')}, {b.steps} client steps; "
+            f"launches {la}")
+        out[name] = {"rounds": r, "s_per_round": b.s_per_round,
+                     "setup_s": b.setup_s, **m, "art": b.out["art"],
+                     "aco": b.out["aco"], "client_steps": b.steps,
+                     "forced_syncs": b.out.get("forced_syncs"),
+                     "launches": la}
+    return out
+
+
+# -- phase 5d: the fleet ---------------------------------------------------
+FLEET_CNN = dict(name="feds3a-cnn-fleet", conv_filters=(8, 8), hidden=16)
+FLEET_POOL, FLEET_SCALE = 64, 0.001
+FLEET_M, FLEET_K_FULL = 1000, 64          # (i): full width
+FLEET_M_BIG, FLEET_K = 1_000_000, 512     # (ii): the fleet width
+PEAK_SLACK = 64 << 20     # (ii): peak device bytes may exceed M = 1,000's
+
+
+def drive_fleet(torch, port, ops, M, K, store, cnn, rounds, warmup=0,
+                paged_dir=None, profile=False):
+    """Batched + csr + EF on ``make_fleet_dataset(M, pool=64,
+    scale=0.001)``, K participants a round, the counters reset just before
+    and the peak device memory measured from there; ``warmup`` of the
+    rounds untimed; with ``profile``, one more round under the profiler
+    after the results are read."""
+    data = port.make_fleet_dataset(M, pool=FLEET_POOL, scale=FLEET_SCALE,
+                                   seed=0)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = port.FedS3ATrainer(data, port.FedS3AConfig(
+        rounds=rounds, C=K / M, cnn=cnn, engine="batched",
+        wire_format="csr", error_feedback=True, client_store=store,
+        paged_dir=paged_dir))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(warmup):
+        tr.run_round()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _ in range(rounds - warmup):
+        tr.run_round()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    store_s = store_seconds(tr)
+    m = tr.evaluate()
+    launches = dict(ops.LAUNCHES)
+    name = f"fleet M={M} K={K} {store}"
+    parts = [len(log.participants) for log in tr.logs]
+    check(parts == [K] * rounds, f"{name}: participants a round {parts}")
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()),
+          f"{name}: metrics out of range: {m}")
+    check_launches(launches, CSR_KERNELS, name, {"csr_compact": 3}, rounds)
+    res = {"M": M, "K": K, "store": store, "rounds": rounds,
+           "warmup_rounds": warmup, "n_params": int(tr._global_flat.numel()),
+           "setup_s": t1 - t0, "s_per_round": (t3 - t2) / (rounds - warmup),
+           "accuracy": m["accuracy"], "aco": tr.comm.aco,
+           "participants": parts, "forced": [len(log.forced)
+                                             for log in tr.logs],
+           "client_state_device_bytes": tr.client_state_device_bytes(),
+           "client_state_host_bytes": tr.client_state_host_bytes(),
+           "resident_equiv_bytes": tr.client_state_resident_equiv_bytes(),
+           "residual_store_bytes": tr.residual_store_bytes(),
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "digest": params_digest(port, tr), "launches": launches,
+           "paged_dir": paged_dir is not None,
+           "store_host_s_per_round": None if store_s is None else
+           {k: v / rounds for k, v in store_s.items()}}
+    log(f"  {name}: N = {res['n_params']}, set-up {res['setup_s']:.2f} s, "
+        f"{res['s_per_round']:.3f} s a round ({rounds - warmup} timed), "
+        f"forced a round {res['forced']}, accuracy {m['accuracy']:.6f}, ACO "
+        f"{res['aco']:.6f}; client state on the device "
+        f"{res['client_state_device_bytes']} B, host (nominal) "
+        f"{res['client_state_host_bytes']} B, resident equivalent "
+        f"{res['resident_equiv_bytes']} B, peak device memory "
+        f"{res['peak_device_bytes']} B; paged store host s a round "
+        f"{res['store_host_s_per_round']}; launches {launches}")
+    if profile:
+        res["profiled_round"] = profile_round(torch, tr.run_round,
+                                              f"{name} round")
+    del tr
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mem_available():
+    """The host's MemAvailable in bytes (Linux), or None."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        return None
+    return None
+
+
+def fleet(torch, port, ops):
+    """Phase 5d. (i) M = 1,000 at full width, 64 participants a round,
+    resident then paged: bit-equal, the paged device state a window of the
+    participants. (ii) M = 1,000,000 at the fleet width, 512 participants,
+    paged, 1 warm-up and 2 timed rounds, beside M = 1,000 with the same K:
+    the device's client-state bytes must be equal."""
+    full = [drive_fleet(torch, port, ops, FLEET_M, FLEET_K_FULL, store,
+                        port.CNNConfig(), 3, profile=True)
+            for store in ("resident", "paged")]
+    same = {k: full[0][k] == full[1][k] for k in ("accuracy", "aco",
+                                                  "participants", "digest",
+                                                  "launches")}
+    log(f"  M = {FLEET_M}, full width: paged against resident {same}")
+    check(all(same.values()), f"fleet M = {FLEET_M}: paged differs from "
+          f"resident: {same}")
+    check(full[1]["client_state_device_bytes"] <
+          full[0]["client_state_device_bytes"],
+          f"fleet M = {FLEET_M}: the paged store holds no less on the device")
+    cnn = port.CNNConfig(**FLEET_CNN)
+    small = drive_fleet(torch, port, ops, FLEET_M, FLEET_K, "paged", cnn, 3,
+                        1)
+    n = small["n_params"]
+    rcap = math.ceil(0.25 * n)
+    nominal = FLEET_M_BIG * rcap * 8
+    avail = _mem_available()
+    spill = avail is None or nominal > avail // 2
+    log(f"  M = {FLEET_M_BIG}: nominal host pages {nominal} B, host memory "
+        f"available {avail} B: "
+        + ("pages memory-mapped under a temporary directory" if spill else
+           "pages in anonymous memory (committed lazily)"))
+    tmp = tempfile.mkdtemp(prefix="fleet_pages_") if spill else None
+    try:
+        big = drive_fleet(torch, port, ops, FLEET_M_BIG, FLEET_K, "paged",
+                          cnn, 3, 1, paged_dir=tmp)
+    finally:
+        if tmp is not None:
+            for f in os.listdir(tmp):
+                os.remove(os.path.join(tmp, f))
+            os.rmdir(tmp)
+    log(f"  client state on the device: M = {FLEET_M} "
+        f"{small['client_state_device_bytes']} B, M = {FLEET_M_BIG} "
+        f"{big['client_state_device_bytes']} B")
+    check(big["client_state_device_bytes"] ==
+          small["client_state_device_bytes"],
+          "the device's client-state bytes grow with M")
+    # the window bytes are K-sized by construction; the peak is the witness
+    # that nothing of size M (a participation row, a mask) reached the card
+    check(big["peak_device_bytes"] <= small["peak_device_bytes"]
+          + PEAK_SLACK, f"peak device memory grows with M: "
+          f"{small['peak_device_bytes']} B at M = {FLEET_M}, "
+          f"{big['peak_device_bytes']} B at M = {FLEET_M_BIG}")
+    return {"full_width": full, "fleet_width": [small, big],
+            "nominal_host_page_bytes": nominal}
 
 
 # -- phase 6: serving qwen2-1.5b at full width -----------------------------
@@ -1207,9 +1746,10 @@ def main():
         sys.exit("chip_smoke: CUDA is not available; this smoke test needs "
                  "one GPU")
     from repro_torch.configs.feds3a_cnn import CNNConfig
+    from repro_torch.core import baselines
     from repro_torch.core import sparse_comm as comm_mod
     from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
-    from repro_torch.data import make_dataset
+    from repro_torch.data import make_dataset, make_fleet_dataset
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch.serve import serve_batch
@@ -1223,6 +1763,7 @@ def main():
     port = SimpleNamespace(   # the entry points the phases drive
         CNNConfig=CNNConfig, FedS3AConfig=FedS3AConfig,
         FedS3ATrainer=FedS3ATrainer, make_dataset=make_dataset,
+        make_fleet_dataset=make_fleet_dataset, baselines=baselines,
         cnn_param_count=cnn_param_count, init_cnn=init_cnn,
         params_to_numpy=params_to_numpy, get_config=get_config, lm=lm,
         serve_batch=serve_batch, make_prefill_step=make_prefill_step,
@@ -1288,6 +1829,9 @@ def main():
         "0.1)")
     trainer_gpu_vs_cpu(torch, port)
     engines_on_card(torch, port)
+    log("phase 4c: the baselines on the card vs on the CPU (full width, "
+        "dropout 0, scale 0.02, 2 rounds; FedAsync-SSL 8 arrivals)")
+    base_parity = baselines_gpu_vs_cpu(torch, port, ops)
 
     log(f"phase 5: {len(PATHS)} paths (full-width paper CNN, scale 0.02, 3 "
         "rounds each), each profiled for one more round (phase 5b)")
@@ -1298,6 +1842,22 @@ def main():
         res["profiled_round"] = profile_round(torch, tr.run_round)
         paths[path_name(engine, wire, ef)] = res
         del tr
+    log(f"phase 5 (paged): {len(PAGED_PATHS)} paths, each paged right after "
+        "its resident twin, bit for bit")
+    for engine, wire, ef in PAGED_PATHS:
+        twins = paged_twins(torch, port, ops, engine, wire, ef)
+        if (engine, wire, ef) not in PATHS:
+            paths[path_name(engine, wire, ef)] = twins["resident"]
+        paths[path_name(engine, wire, ef, "paged")] = twins["paged"]
+    log("phase 5c: the baselines at full width (dropout 0.1, 3 rounds; "
+        "FedAsync-SSL 12 arrivals), beside FedS3A batched + csr "
+        f"({paths['batched+csr']['s_per_round']:.3f} s a round, accuracy "
+        f"{paths['batched+csr']['accuracy']:.6f}, ACO "
+        f"{paths['batched+csr']['aco']:.6f})")
+    base = baselines_full_width(torch, port, ops)
+    log("phase 5d: the fleet (batched + csr + EF): M = 1,000 at full width "
+        "paged vs resident; M = 1,000,000 at the fleet width, paged")
+    fleet_res = fleet(torch, port, ops)
 
     log(f"phase 6: serving {SERVE_ARCH} at full width ({SERVE_REQUESTS} "
         f"requests, bucket {SERVE_BUCKET}, max_new {SERVE_NEW})")
@@ -1308,7 +1868,8 @@ def main():
     # the first batched path that runs it (sparse_delta: dense_masked;
     # csr_quant: csr_q + EF; flash_attention: serve)
     for k in kernels:
-        by_path = {p: r["launches"][k["name"]] for p, r in paths.items()}
+        by_path = {p: r["launches"][k["name"]]
+                   for p, r in {**paths, **base}.items()}
         k["launches"] = by_path["batched+csr"] or \
             by_path["batched+dense_masked"] or \
             by_path["batched+csr_q+ef"] or by_path["serve"]
@@ -1316,7 +1877,9 @@ def main():
     del paths["serve"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "paths": paths, "serve": serve,
-                      "gpu": smi}), flush=True)
+                      "baselines": base, "baselines_card_vs_cpu":
+                      base_parity, "fleet": fleet_res, "gpu": smi}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,6 @@
 """FedS3A aggregation (§IV-D, Eq. 9/10). Port of
-``repro/core/aggregation.py:22-70, 106-150, 173-222, 280-334``.
+``repro/core/aggregation.py:22-70, 106-150, 173-222, 280-363``, with the
+baselines' FedAvg (Eq. 3, Eq. 8) and FedAsync blends.
 
 The group-based variant (Eq. 10) averages |D|-weighted, g(s)-decayed
 client models within each k-means group and arithmetically across
@@ -170,3 +171,33 @@ def blend_flat_csr_q(server_flat, base_flat, qvals, qoffs, qcnt, scales,
     unsup = kops.staleness_agg(base_flat, w) + csr_q_weighted_scatter(
         qvals, qoffs, qcnt, scales, stored, w, server_flat.shape[0])
     return _blend(server_flat, unsup, f_weight)
+
+
+def fedavg(client_params, data_sizes):
+    """Eq. 3, plain FedAvg over clients (``aggregation.py:337-341``): the
+    |D|-proportional weights normalised in float64 on the host, the sum
+    through ``staleness_agg``."""
+    w = np.asarray(data_sizes, dtype=np.float64)
+    w = w / w.sum()
+    return _weighted_sum_trees(client_params, w)
+
+
+def fedavg_ssl(server_params, client_params, data_sizes, f_weight):
+    """Eq. 8, FedAvg with the dynamic supervised weight, the adapted
+    baseline (``aggregation.py:344-350``)."""
+    unsup = fedavg(client_params, data_sizes)
+    return {k: (f_weight * s.to(torch.float32)
+                + (1.0 - f_weight) * unsup[k].to(torch.float32)).to(s.dtype)
+            for k, s in server_params.items()}
+
+
+def fedasync_blend(global_params, client_params, *, staleness, alpha=0.9,
+                   a=0.5):
+    """FedAsync mixing (Xie et al. 2019) with polynomial staleness decay
+    (``aggregation.py:353-363``): ``alpha_t = min(alpha (s + 1)^-a, 1)``
+    in Python floats, then ``(1 - alpha_t) g + alpha_t c`` elementwise in
+    float32."""
+    alpha_t = min(alpha * (staleness + 1.0) ** (-a), 1.0)
+    return {k: ((1 - alpha_t) * g.to(torch.float32)
+                + alpha_t * client_params[k].to(torch.float32)).to(g.dtype)
+            for k, g in global_params.items()}

@@ -17,10 +17,17 @@ Wires: the compacted ``"csr"`` wire, the quantized ``"csr_q"`` wire
 (``q_dtype="int8"`` or ``"fp16"``), the ``"dense_masked"`` wire, and the
 disabled channel (``sparse_comm=False``); the versioned base store keeps
 the reconstructions and the chain for every engine and wire. With
-``error_feedback=True`` every client keeps a dense residual row on the
-device (the resident store, ``feds3a.py:578-605``): what its last upload
-did not deliver, re-offered with the next one, and zeroed when the
+``error_feedback=True`` every client keeps a residual: what its last
+upload did not deliver, re-offered with the next one, and zeroed when the
 scheduler force-restarts the client.
+
+Client stores (``client_store=``): ``"resident"`` keeps the residuals as
+one dense (M, N) tensor on the device and the batched engine's padded
+client data as (M, nb*B, F) (``feds3a.py:578-605``); ``"paged"`` keeps
+both on the host (``core/client_store.py``; a pooled fleet dataset's P
+distinct shards only) and puts only the round's K participants on the
+device (``feds3a.py:473-519, 618-635``). A paged run is a memory layout,
+not an algorithm: it gives its resident twin's results bit for bit.
 
 A round: the scheduler admits ``ceil(C * M)`` uploads; each participant
 trains one pseudo-label epoch from its ring base and uploads its delta;
@@ -52,18 +59,22 @@ from repro_torch.configs.feds3a_cnn import CONFIG as CNN_CONFIG
 from repro_torch.core import aggregation as agg
 from repro_torch.core import pseudo_label
 from repro_torch.core.base_store import VersionedBaseStore
+from repro_torch.core.client_store import (PagedClientStore, ResidentStore,
+                                           take_to_device)
 from repro_torch.core.functions import (adaptive_learning_rates,
                                         staleness_fn, supervised_weight)
 from repro_torch.core.grouping import group_clients
 from repro_torch.core.metrics import fleet_health, weighted_metrics
 from repro_torch.core.scheduler import SemiAsyncScheduler, paper_latency
 from repro_torch.core.sparse_comm import (CSR_FORMATS, SparseComm,
-                                          flatten_tree, unflatten_like)
+                                          csr_page_decode, flatten_tree,
+                                          unflatten_like)
 from repro_torch.models.cnn import cnn_param_count, dropout_masks, init_cnn
 from repro_torch.optimizer import adam_init
 from repro_torch.weights import params_from_numpy
 
 ENGINES = ("sequential", "batched", "sharded")
+CLIENT_STORES = ("resident", "paged")
 # auto engine selection on the CPU: stacked rounds win where round overhead
 # dominates, the reference's own cut (feds3a.py:458-459)
 CPU_BATCHED_MAX_PARAMS = 300_000
@@ -93,8 +104,9 @@ class FedS3AConfig:
     wire_capacity: object = None        # per-row payload capacity override
     residual_frac: float = 0.25         # EF residual: top share of N kept
     base_store: str = "versioned"
-    client_store: str = "resident"
-    paged_dir: object = None            # paged client store (not ported yet)
+    client_store: str = "resident"      # "resident" | "paged"
+    paged_dir: object = None            # paged store: memory-map the
+                                        # residual pages under this dir
     error_feedback: bool = False
     l1: float = 1e-5                    # §IV-F L1 regularisation
     use_kernels: bool = False           # accepted, changes nothing: a model
@@ -122,17 +134,26 @@ class FedS3AConfig:
 
 
 def _check_slice(cfg):
-    """Refuse every config value this slice does not port, naming the
+    """Refuse invalid config values (``ValueError``, as the reference
+    does), then every value this slice does not port, naming the
     ROADMAP.md queue ("Still to port") that brings it."""
+    if cfg.engine not in ENGINES + (None,):
+        raise ValueError(f"engine must be one of {ENGINES} or None, got "
+                         f"{cfg.engine!r}")
+    if cfg.client_store not in CLIENT_STORES:
+        raise ValueError(f"client_store must be one of {CLIENT_STORES}, "
+                         f"got {cfg.client_store!r}")
+    if cfg.client_store == "paged" and cfg.base_store != "versioned":
+        raise ValueError(
+            "client_store='paged' requires base_store='versioned': the "
+            "paged layout keeps no per-client base state; a client's base "
+            "is its ring version, already on the host")
     later = {
         "engine": (cfg.engine == "sharded", "4 (sharded engine)"),
         "model": (cfg.model is not None,
                   "3b (the FL language-model path)"),
         "base_store": (cfg.base_store != "versioned",
                        "4 (legacy dense base store)"),
-        "client_store": (cfg.client_store != "resident",
-                         "4 (paged client store)"),
-        "paged_dir": (cfg.paged_dir is not None, "4 (paged client store)"),
         "traffic": (cfg.traffic is not None or cfg.round_deadline is not None,
                     "4 (faults)"),
         "chunk_size": (bool(cfg.chunk_size) or cfg.param_layout is not None
@@ -145,9 +166,6 @@ def _check_slice(cfg):
             raise NotImplementedError(
                 f"FedS3AConfig.{name} is outside the ported slice; it comes "
                 f"with ROADMAP.md 'Still to port' queue {queue}")
-    if cfg.engine not in ENGINES + (None,):
-        raise ValueError(f"engine must be one of {ENGINES} or None, got "
-                         f"{cfg.engine!r}")
 
 
 def _resolve_device(name):
@@ -179,6 +197,15 @@ def select_engine(engine, device, n_params, batched=None):
     if device.type == "cuda" or n_params <= CPU_BATCHED_MAX_PARAMS:
         return "batched"
     return "sequential"
+
+
+def seeded_masks(cnn, device, seed, shape):
+    """Dropout keep-masks (*shape, hidden) on ``device`` from one draw of a
+    device generator seeded with ``seed`` (a host draw); None without
+    dropout."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return dropout_masks(cnn, shape, gen)
 
 
 @dataclass
@@ -216,6 +243,7 @@ class FedS3ATrainer:
         torch.backends.cudnn.allow_tf32 = False
         self.data = data
         self.M = len(data["clients"])
+        self.paged = self.cfg.client_store == "paged"
         self.cnn = self.cfg.cnn if self.cfg.cnn is not None else CNN_CONFIG
         self.engine = select_engine(self.cfg.engine, self.device,
                                     cnn_param_count(self.cnn),
@@ -271,21 +299,40 @@ class FedS3ATrainer:
 
     def _build_padded_data(self):
         """Every client's data padded to the fleet's largest batch count,
-        once, as (M, nb*B, F) and (M, nb*B) validity stacks on the device
-        (``feds3a.py:473-502``, the resident store)."""
+        once, as (rows, nb*B, F) and (rows, nb*B) validity stacks
+        (``feds3a.py:473-502``). Resident: all M clients, on the device.
+        Paged: on the host, and of a pooled fleet dataset (``data["pool"]``,
+        M clients aliasing P distinct shards) only the P distinct rows,
+        with ``_data_map`` sending client i to its shard's row."""
         B = self.cfg.batch_size
-        clients = self.data["clients"]
+        pool = self.data.get("pool") if self.paged else None
+        rows = min(int(pool), self.M) if pool else self.M
+        clients = self.data["clients"][:rows]
         nb = max(max((len(c["x"]) + B - 1) // B, 1) for c in clients)
-        xs = np.zeros((self.M, nb * B, clients[0]["x"].shape[1]), np.float32)
-        valid = np.zeros((self.M, nb * B), np.float32)
+        xs = np.zeros((rows, nb * B, clients[0]["x"].shape[1]), np.float32)
+        valid = np.zeros((rows, nb * B), np.float32)
         for i, c in enumerate(clients):
             xs[i, :len(c["x"])] = c["x"]
             valid[i, :len(c["x"])] = 1.0
-        self._x_pad = torch.from_numpy(xs).to(self.device)
-        self._valid_pad = torch.from_numpy(valid).to(self.device)
+        self._pad_batches = nb
+        if self.paged:
+            self._x_pad_h, self._valid_pad_h = xs, valid
+            self._data_map = np.arange(self.M, dtype=np.int64) % rows
+            self._data_row_bytes = int(xs[0].nbytes + valid[0].nbytes)
+        else:
+            self._x_pad = torch.from_numpy(xs).to(self.device)
+            self._valid_pad = torch.from_numpy(valid).to(self.device)
 
     def _gather_data(self, ids):
-        """Participants' padded data rows, a device-side index."""
+        """Participants' padded data rows on the device. Resident: a
+        device-side index. Paged: a host index, then a copy of just the
+        window (the same values, bit for bit)."""
+        if self.paged:
+            rows = self._data_map[np.asarray(ids, np.int64)]
+            xs = take_to_device(self._x_pad_h, rows, self.device)
+            vs = take_to_device(self._valid_pad_h, rows, self.device)
+            self._data_window_bytes = int(xs.nbytes + vs.nbytes)
+            return xs, vs
         idx = torch.as_tensor(ids, device=self.device)
         return self._x_pad[idx], self._valid_pad[idx]
 
@@ -295,11 +342,8 @@ class FedS3ATrainer:
         return self.seed_rng.integers(0, 2**63 - 1, size=k + 1)
 
     def _masks(self, seed, prefix):
-        """Dropout keep-masks (*prefix, B, hidden) from one draw of a
-        device generator seeded with ``seed``; None without dropout."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        return dropout_masks(self.cnn, (*prefix, self.cfg.batch_size), gen)
+        return seeded_masks(self.cnn, self.device, seed,
+                            (*prefix, self.cfg.batch_size))
 
     def _server_masks(self, seed):
         n = len(self.data["server"]["x"])
@@ -333,11 +377,26 @@ class FedS3ATrainer:
         self._zero_opt = adam_init(params)
         self.store = VersionedBaseStore(self._global_flat, self.M, cfg.tau)
         self.global_version = 0
-        # EF: one dense residual row per client, on the model's device (a
-        # disabled channel delivers everything: its residual stays zero)
-        self._residual = torch.zeros((self.M, self._global_flat.shape[0]),
-                                     device=self.device) \
-            if cfg.error_feedback and self.comm.enabled else None
+        # EF keeps a residual per client (a disabled channel delivers
+        # everything: its residual stays zero, and none is kept)
+        ef = cfg.error_feedback and self.comm.enabled
+        n = self._global_flat.shape[0]
+        self.cstore = None
+        self._data_window_bytes = 0
+        if self.paged:
+            # host pages and a device window of the participants' pages:
+            # CSR pages on the CSR wires, dense rows on dense_masked
+            layout = ("csr" if self._csr_wire else "dense") if ef else "none"
+            self.cstore = PagedClientStore(
+                self.M, n, self.comm.residual_capacity(n), layout=layout,
+                paged_dir=cfg.paged_dir, device=self.device)
+            self.cstore.adopt_versions(self.store.client_version)
+        elif ef:
+            # the resident store: one dense row per client on the device
+            self.cstore = ResidentStore(self.M, n, device=self.device)
+        # how the residuals travel: "csr" pages, "dense" rows, or None
+        self._ef_layout = None if self.cstore is None or \
+            self.cstore.layout == "none" else self.cstore.layout
 
     @property
     def global_params(self):
@@ -396,9 +455,11 @@ class FedS3ATrainer:
         """A forced restart discards the client's EF residual with its
         trajectory: it was accumulated against a base the client no longer
         holds (``feds3a.py:813-848``; the fault layer, not yet ported,
-        retires lost, departed and rejoining clients' residuals too)."""
-        if self._residual is not None and forced:
-            self._residual[torch.as_tensor(forced, device=self.device)] = 0.0
+        retires lost, departed and rejoining clients' residuals too). The
+        paged store invalidates the pages, queued after this round's
+        write-back as the resident sequence orders them."""
+        if forced and self._ef_layout is not None:
+            self.cstore.retire(sorted(set(forced)))
 
     # ------------------------------------------------------------------
     def run_round(self):
@@ -421,6 +482,9 @@ class FedS3ATrainer:
         row = np.zeros((1, self.M))
         row[0, part_ids] = 1
         self.participation = np.concatenate([self.participation, row])
+        if self.paged:
+            self.cstore.record_participation(part_ids,
+                                             self.global_version - 1)
         log = RoundLog(round=self.global_version - 1, time=ev.time,
                        art=ev.time - prev_time, participants=part_ids,
                        stalenesses={i: ev.stale[i] for i in part_ids},
@@ -463,15 +527,23 @@ class FedS3ATrainer:
         seeds = self._draw_seeds(len(part_ids))
 
         client_models, sizes, stalenesses, hists = [], [], [], []
+        layout = self._ef_layout
         for j, i in enumerate(part_ids):
             newp, base = self._train_client(i, float(lrs[i]), seeds[j])
-            if self._residual is None:
-                delta, _ = self.comm.encode(newp, base)
-            else:
+            if layout == "csr":
+                # the residual is a CSR page: gather it, fold its decode
+                # into the encode, queue the new page back
+                rv, rx = self.cstore.gather_csr([i])
+                delta, _, (nrv, nrx) = self.comm.encode_paged(
+                    newp, base, rv[0], rx[0])
+                self.cstore.scatter_csr([i], nrv[None], nrx[None])
+            elif layout == "dense":
+                row = self.cstore.gather_dense([i])[0]
                 delta, _, res = self.comm.encode(
-                    newp, base, residual=unflatten_like(self._residual[i],
-                                                        newp))
-                self._residual[i] = flatten_tree(res)
+                    newp, base, residual=unflatten_like(row, newp))
+                self.cstore.scatter_dense([i], flatten_tree(res)[None])
+            else:
+                delta, _ = self.comm.encode(newp, base)
             uploaded = self.comm.apply(base, delta)
             client_models.append(uploaded)
             x = self.data["clients"][i]["x"]
@@ -504,7 +576,7 @@ class FedS3ATrainer:
         """(K, epochs, nb, B, hidden) dropout masks: participant j's own
         draw (``_train_client``'s, from the same seed) in its first nb_j
         batches; the padding batches, which never step, keep everything."""
-        nb = self._x_pad.shape[1] // self.cfg.batch_size
+        nb = self._pad_batches
         out = None
         for j, i in enumerate(part_ids):
             m = self._masks(seeds[j], (self.cfg.epochs, self.num_batches[i]))
@@ -524,13 +596,17 @@ class FedS3ATrainer:
         uploaded (K, N) stack on the dense wires (``feds3a.py:1051-1134,
         1268-1290``)."""
         K, n = trained.shape
+        layout = self._ef_layout
         residual = None
-        if self._residual is not None:
-            rows = torch.as_tensor(part_ids, device=self.device)
-            residual = self._residual.index_select(0, rows)
+        if layout == "csr":
+            # the participants' pages decode to their dense rows inside the
+            # encode; the new residuals leave as pages
+            residual = csr_page_decode(*self.cstore.gather_csr(part_ids), n)
+        elif layout == "dense":
+            residual = self.cstore.gather_dense(part_ids)
         if self._csr_wire:
             payload, stored, decoded, *res = self.comm.csr_core(
-                trained, base_flat, residual)
+                trained, base_flat, residual, pages=layout == "csr")
             self.comm.account_batch_csr(stored, n, K)
             uploaded = base_flat + decoded if with_hist else None
             sent = payload + (stored,)
@@ -542,8 +618,10 @@ class FedS3ATrainer:
                 masked, nnz = trained - base_flat, None
             self.comm.account_batch(nnz, n, K)
             uploaded = sent = base_flat + masked
-        if residual is not None:
-            self._residual.index_copy_(0, rows, res[0])
+        if layout == "csr":
+            self.cstore.scatter_csr(part_ids, *res[0])
+        elif layout == "dense":
+            self.cstore.scatter_dense(part_ids, res[0])
         hists = self.histogram_batch(uploaded, xs, vs).cpu().numpy() \
             if with_hist else None
         return sent, hists
@@ -590,6 +668,50 @@ class FedS3ATrainer:
         self._global_flat = new_flat
         self._gp_tree = None
         return self._round_epilogue(prev_time, ev)
+
+    # -- memory reporting (``feds3a.py:1973-2060``) -------------------
+    def residual_store_bytes(self):
+        """Bytes of the per-client EF residual state (0 without EF): the
+        resident (M, N) float32 tensor on the device, or the paged store's
+        nominal host pages."""
+        return 0 if self.cstore is None else self.cstore.residual_store_bytes()
+
+    def client_state_device_bytes(self):
+        """Device bytes of per-client state: resident, the (M, N) residual
+        and the batched engine's (M, nb*B, F) padded data, linear in M;
+        paged, the last round's participant window and its queued pages,
+        O(K), flat in M."""
+        total = 0 if self.cstore is None else \
+            self.cstore.device_window_bytes()
+        if self.paged:
+            total += self._data_window_bytes
+        elif self.engine == "batched":
+            total += self._x_pad.nbytes + self._valid_pad.nbytes
+        return int(total)
+
+    def client_state_host_bytes(self):
+        """Nominal host bytes of per-client state: paged, the store's pages,
+        counters and the adopted versions, plus the host data stack the
+        batched engine pages from; resident, the versions alone."""
+        if not self.paged:
+            return int(self.store.client_version.nbytes)
+        total = self.cstore.host_bytes()
+        if self.engine == "batched":
+            total += int(self._x_pad_h.nbytes + self._valid_pad_h.nbytes
+                         + self._data_map.nbytes)
+        return total
+
+    def client_state_resident_equiv_bytes(self):
+        """What the resident layout puts on the device at this fleet size:
+        the batched engine's padded data stack and, under EF, the dense
+        (M, N) residual."""
+        total = 0
+        if self.engine == "batched":
+            total += self.M * self._data_row_bytes if self.paged else \
+                int(self._x_pad.nbytes + self._valid_pad.nbytes)
+        if self.cfg.error_feedback and self.comm.enabled:
+            total += self.M * self._global_flat.shape[0] * 4
+        return total
 
     # ------------------------------------------------------------------
     def evaluate(self, params=None):

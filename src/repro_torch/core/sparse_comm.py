@@ -35,12 +35,17 @@ N by magnitude (a per-row sampled quantile, then ``csr_compact`` at
 ``residual_capacity``); on ``dense_masked`` it is ``delta - masked``; a
 disabled channel sends everything and keeps a zero residual.
 
+Under the paged client store a CSR-wire residual lives as a (rcap,) page
+(values, indices) on the host; ``encode_paged`` takes one and returns the
+new one, bit for bit what ``encode`` gives with the page's dense expansion
+as the residual.
+
 ACO is payload bytes over dense bytes. Survivor counts stay on the device
 until ``aco`` / ``payload_bytes`` / ``wire_breakdown`` read them, in one
 transfer.
 
-Still to port: chunked layouts, paged residuals (``encode_paged``) and
-wire validation.
+Still to port: chunked layouts (ROADMAP queue 4, chunking) and wire
+validation (queue 4, faults).
 """
 from __future__ import annotations
 
@@ -127,6 +132,17 @@ def csr_decode(values, indices, stored, n):
     K, cap = values.shape
     out = torch.zeros((K, n + cap), dtype=torch.float32, device=values.device)
     return out.scatter_(1, csr_columns(indices, stored, n), values)[:, :n]
+
+
+def csr_page_decode(values, indices, n):
+    """Dense (K, n) f32 of CSR residual pages (K, rcap), which carry no
+    count: ``csr_compact`` keeps only nonzero values, in a prefix of the
+    row, and zeroes the slots past it, so a page's live slots are its
+    nonzero ones. The resident layout's ``csr_decode`` of the same rows,
+    bit for bit; an all-zero page (retired, never written) decodes to
+    zeros."""
+    return csr_decode(values, indices, torch.count_nonzero(values, dim=1),
+                      n)
 
 
 def csr_q_columns(qoffs, qcnt, stored, n):
@@ -244,7 +260,8 @@ class SparseComm:
                                     q_dtype=self.q_dtype)
         return payload, stored, csr_q_decode(*payload, stored, n)
 
-    def csr_core(self, new_flat, base_flat, residual_flat=None):
+    def csr_core(self, new_flat, base_flat, residual_flat=None, *,
+                 pages=False):
         """The CSR-family encode pipeline on (K, n) flat stacks (the
         reference's ``csr_core``): ``(new, base[, residual]) -> (payload,
         stored, decoded[, residual'])`` with ``stored = min(nnz, cap)`` the
@@ -252,8 +269,10 @@ class SparseComm:
         With a residual, the message is ``new - base + residual`` and
         ``residual'`` (K, n) is ``message - decoded`` (sub-threshold mass,
         capacity overflow and, on csr_q, rounding error) cut to its top
-        ``residual_frac`` per row at ``residual_capacity``. Per-row only;
-        the caller books the stored counts."""
+        ``residual_frac`` per row at ``residual_capacity``; with
+        ``pages=True`` it is that cut as (values, indices) (K, rcap) pages
+        instead, undecoded. Per-row only; the caller books the stored
+        counts."""
         delta = new_flat - base_flat
         if residual_flat is not None:
             delta = delta + residual_flat
@@ -266,6 +285,8 @@ class SparseComm:
         rcap = self.residual_capacity(n)
         rvals, ridx, rnnz = kops.csr_compact(
             res, local_quantile_thresholds(res, self.residual_frac), rcap)
+        if pages:
+            return payload, stored, decoded, (rvals, ridx)
         res = csr_decode(rvals, ridx, torch.clamp(rnnz, max=rcap), n)
         return payload, stored, decoded, res
 
@@ -321,6 +342,27 @@ class SparseComm:
         if residual is None:
             return out
         return out + (unflatten_like(flat - masked, delta),)
+
+    def encode_paged(self, new_params, base_params, res_vals, res_idx):
+        """One CSR-wire message against a PAGED residual
+        (``sparse_comm.py:1015-1041``): the client's residual arrives as a
+        (rcap,) page (values, indices) and the new one leaves as a page
+        for the store's write queue. Returns ``(sparse delta tree, stats,
+        (rvals', ridx'))``; booked at once. The page decodes to exactly
+        the dense row the resident layout keeps, and adding it to the flat
+        delta is the elementwise sum ``encode`` forms leaf by leaf, so the
+        result is ``encode``'s with that row as the residual, bit for
+        bit."""
+        delta = tree_sub(new_params, base_params)
+        flat = flatten_tree(delta)
+        n = flat.shape[0]
+        flat = flat + csr_page_decode(res_vals[None], res_idx[None], n)[0]
+        zero = torch.zeros_like(flat)[None]
+        _, stored, decoded, (rvals, ridx) = self.csr_core(
+            flat[None], zero, zero, pages=True)
+        stats = {"nnz": stored[0], "total": n, "rows": 1}
+        self.account_batch_csr(stats["nnz"], n, 1)
+        return unflatten_like(decoded[0], delta), stats, (rvals[0], ridx[0])
 
     def encode_batch(self, new_flat, base_flat, residual_flat=None):
         """K messages at once from (K, n) flat stacks -> (the receiver's

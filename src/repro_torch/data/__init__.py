@@ -3,5 +3,6 @@ from repro_torch.data.synthetic_cicids import (  # noqa: F401
     BASIC_SCENARIO,
     CLASS_NAMES,
     make_dataset,
+    make_fleet_dataset,
     shannon_entropy,
 )

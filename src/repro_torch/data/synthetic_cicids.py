@@ -1,6 +1,6 @@
 """Synthetic CIC-IDS-2017-like dataset: the port's numpy copy of
-``repro/data/synthetic_cicids.py`` (the fleet-scale generator waits for the
-sharded engine). The real dataset is not available offline.
+``repro/data/synthetic_cicids.py``, with the fleet-scale generator and its
+pooled shards. The real dataset is not available offline.
 
 78 continuous features, 9 classes (Benign + 8 attacks), class-conditional
 two-component Gaussian mixtures with enough separation that >98% accuracy is
@@ -104,6 +104,45 @@ def make_dataset(scenario="basic", *, scale=0.02, server_frac=0.05,
 
     counts = np.maximum((table * scale).astype(int), 0)
     return _build_federation(counts, model, rng, server_frac, test_frac)
+
+
+def make_fleet_dataset(num_clients, *, scenario="basic", scale=0.001,
+                       jitter=0.3, server_frac=0.05, test_frac=0.1, seed=0,
+                       separation=8.0, pool=None):
+    """Fleet-scale federation (``synthetic_cicids.py:108-144``):
+    ``num_clients`` clients whose class counts tile the Table III rows
+    cyclically, each scaled by ``scale`` and a per-client uniform size
+    jitter of +-``jitter``. Same return shape as ``make_dataset``. Keep
+    ``scale`` small: the batched engine pads every client to the fleet's
+    largest batch count.
+
+    ``pool``: build only ``pool`` distinct client shards and alias them
+    cyclically across the fleet (the clients share array references, no
+    copies), so a million-client fleet takes the memory of a
+    ``pool``-client one. The dict then carries ``"pool"``, from which the
+    paged store keeps only the distinct rows. The server and test splits
+    follow the pool's counts.
+    """
+    table = BASIC_SCENARIO if scenario == "basic" else BALANCED_SCENARIO
+    rng = np.random.default_rng(seed)
+    model = _ClassModel(rng, separation=separation)
+
+    P = num_clients if pool is None else max(1, min(int(pool), num_clients))
+    rows = table[np.arange(P) % len(table)]
+    factors = rng.uniform(1.0 - jitter, 1.0 + jitter, (P, 1))
+    counts = np.maximum((rows * scale * factors).astype(int), 0)
+    # every client holds at least one sample of its majority class, so no
+    # round sees an empty shard
+    empty = counts.sum(axis=1) == 0
+    counts[empty, np.argmax(rows[empty], axis=1)] = 1
+    data = _build_federation(counts, model, rng, server_frac, test_frac)
+    if pool is not None:
+        reps = -(-num_clients // P)
+        data["clients"] = (data["clients"] * reps)[:num_clients]
+        data["counts"] = np.tile(counts, (reps, 1))[:num_clients]
+        data["entropy"] = np.tile(data["entropy"], reps)[:num_clients]
+        data["pool"] = P
+    return data
 
 
 def _build_federation(counts, model, rng, server_frac, test_frac):

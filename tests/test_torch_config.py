@@ -86,9 +86,17 @@ def test_every_reference_field_is_a_port_field():
 
 
 def test_paged_dir_raises_naming_queue_4(tmp_path):
+    """``paged_dir`` is ported with the paged client store: the residual
+    pages are memory-mapped under it. What still raises, naming queue 4,
+    is the fleet checkpoint a paged deployment would pair with it."""
+    tr = _port(paged_dir=str(tmp_path), client_store="paged",
+               error_feedback=True)
+    assert tr.train()["rounds"] == 1
+    assert (tmp_path / "res_vals.npy").is_file()
     with pytest.raises(NotImplementedError,
-                       match=r"paged_dir .*queue 4 \(paged client store\)"):
-        _port(paged_dir=str(tmp_path))
+                       match=r"checkpoint_dir .*queue 4 \(fleet checkpoints\)"):
+        _port(paged_dir=str(tmp_path), client_store="paged",
+              checkpoint_dir=str(tmp_path / "ckpt"))
 
 
 def test_select_engine_maps_batched():
@@ -103,12 +111,17 @@ def test_select_engine_maps_batched():
 def test_core_exports_the_ported_classes_without_jax():
     code = textwrap.dedent("""
         import sys
-        from repro_torch.core import (FedS3AConfig, FedS3ATrainer,
-                                      VersionedBaseStore)
-        from repro_torch.core import base_store, feds3a
+        from repro_torch.core import (FedAsyncSSL, FedAvgSSL, FedS3AConfig,
+                                      FedS3ATrainer, LocalSSL,
+                                      PagedClientStore, VersionedBaseStore)
+        from repro_torch.core import (base_store, baselines, client_store,
+                                      feds3a)
         assert FedS3AConfig is feds3a.FedS3AConfig
         assert FedS3ATrainer is feds3a.FedS3ATrainer
         assert VersionedBaseStore is base_store.VersionedBaseStore
+        assert PagedClientStore is client_store.PagedClientStore
+        assert (FedAvgSSL, FedAsyncSSL, LocalSSL) == (
+            baselines.FedAvgSSL, baselines.FedAsyncSSL, baselines.LocalSSL)
         bad = [m for m in sys.modules
                if m == "jax" or m == "repro" or m.startswith(("jax.",
                                                               "repro."))]

@@ -177,9 +177,9 @@ def test_ef_trainer_matches_reference_sequential_engine(engine, wire):
     # every client's residual row against the reference's residual tree
     for i in range(port.M):
         r = ref.clients[i].get("residual")
-        want_row = np.zeros(port._residual.shape[1], np.float32) \
+        want_row = np.zeros(port.cstore.n, np.float32) \
             if r is None else np.asarray(jsc.flatten_tree(r))
-        np.testing.assert_allclose(port._residual[i].numpy(), want_row,
+        np.testing.assert_allclose(port.cstore.residual_row(i), want_row,
                                    atol=1e-4, rtol=1e-3)
     # the ledgers: framing exact; a batch books one row_ptr for its K rows
     # where the sequential engine books one per message
@@ -212,10 +212,10 @@ def test_forced_restart_zeroes_the_residual(engine):
     for _ in range(10):
         log = port.run_round()
         for i in log.forced:
-            assert not bool(port._residual[i].any())
+            assert not port.cstore.residual_row(i).any()
             reset_checked += i in participated
         for i in set(log.participants) - set(log.forced):
-            assert bool(port._residual[i].any())
+            assert port.cstore.residual_row(i).any()
         participated.update(log.participants)
         if reset_checked:
             break

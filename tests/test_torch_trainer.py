@@ -74,11 +74,20 @@ def test_port_runs_without_jax_or_the_reference_package():
         from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
         from repro_torch.data import make_dataset
         from repro_torch.kernels import build, ops, ref  # noqa: F401
+        from repro_torch.core import baselines, client_store
         cnn = CNNConfig(conv_filters=(4, 4), hidden=8)
         out = FedS3ATrainer(make_dataset("basic", scale=0.0015),
-                            FedS3AConfig(rounds=1, cnn=cnn, device="cpu")
+                            FedS3AConfig(rounds=1, cnn=cnn, device="cpu",
+                                         client_store="paged",
+                                         error_feedback=True)
                             ).train()
         assert out["rounds"] == 1
+        baselines.CNN_CONFIG = cnn
+        out = baselines.FedAvgSSL(make_dataset("basic", scale=0.0015),
+                                  FedS3AConfig(rounds=1, device="cpu")
+                                  ).train()
+        assert out["rounds"] == 1 and out["aco"] == 1.0
+        assert client_store.PagedClientStore(4, 8, 2, device="cpu").M == 4
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "repro" or m.startswith("repro.")]
         assert not bad, bad
@@ -100,9 +109,10 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize("override", [
-    {"engine": "sharded"}, {"client_store": "paged", "error_feedback": True},
+    {"engine": "sharded"},
+    {"client_store": "paged", "error_feedback": True, "engine": "sharded"},
     {"wire_format": "csr_q", "chunk_size": 64},
-    {"base_store": "dense"}, {"client_store": "paged"},
+    {"base_store": "dense"}, {"client_store": "paged", "checkpoint_dir": "c"},
     {"layer_keep_frac": {"conv": 0.5}}, {"round_deadline": 700.0},
     {"chunk_size": 64}, {"checkpoint_dir": "ckpt"}, {"model": "qwen2-1.5b"}])
 def test_outside_the_slice_raises(override):
