@@ -23,19 +23,31 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    line, and again under the writing flush of earlier versions, whose
    write-back the timed call pays; fail unless ``csr_quant`` is one
    device op a call; print the bf16 flash kernel's ptxas report and fail
-   if ``flash_attention.so`` holds no HGMMA (wgmma) instruction;
+   if ``flash_attention.so`` holds no HGMMA (wgmma) instruction; then
+   hold ``csr_compact``, ``csr_quant`` (int8, fp16) and ``staleness_agg``
+   bit for bit at every chunk width of the slice layout (``CHUNK``: the
+   paper CNN in 9 leaf-aligned chunks, conv and out kept at 0.5) at K = 6
+   and K = 1, and all nine chunks' calls of a round back to back on one
+   stream, and time one call of each at three chunk widths;
 4. run the port's sequential engine twice on the card and once on the CPU
    from the same initial weights (full-width paper CNN, dropout 0,
    2 rounds) and compare schedules, parameters, metrics and ACO; then
    card and CPU once more with an absolute threshold, elementwise; then
    the batched engine against the sequential one, both on the card, with
    the default dropout, on the p0.2 wire, with the absolute threshold, and
-   on the csr_q wire with error feedback;
+   on the csr_q wire with error feedback; and the chunked trainer on the
+   card against the CPU (sequential engine, 2 rounds) on the same
+   criteria;
 4c. run the paper's four comparison baselines (FedAvg-SSL partial and
    all, FedAsync-SSL, Local-SSL) on the card and on the CPU at full width
    from the same initial weights (dropout 0, scale 0.02, 2 rounds,
    FedAsync-SSL 8 arrivals): selections, arrivals, ART, forced syncs and
    ACO exact, parameters within atol 1e-4 / rtol 1e-3, metrics 1e-4;
+   Local-SSL update by update from the CPU's state, with a trace of its
+   pseudo-label decisions (argmax and mask): a row whose decision
+   differs from the CPU's from equal state away from a rounding tie
+   fails; the first differing decision of a free run on the card beside
+   the CPU's is recorded;
 5. drive six paths at full width, ``FedS3ATrainer(make_dataset("basic",
    scale=0.02), FedS3AConfig(rounds=3, engine=..., wire_format=...,
    error_feedback=...))`` on the card: sequential + csr, batched + csr
@@ -51,7 +63,11 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    store (sequential and batched csr_q + EF, batched dense_masked + EF),
    each right after its resident twin under the same launch rules, and
    fail unless the two are equal bit for bit (accuracy, ACO, participants
-   a round, a digest of the global parameters);
+   a round, a digest of the global parameters); then four chunked paths
+   (batched csr, batched and sequential csr_q + EF, batched csr_q + EF
+   paged) at 9x the flat batched round's encode launches, the
+   sequential and paged runs equal to the batched resident one bit for
+   bit, and ``chunk_size=6_000_000`` equal to the flat batched csr run;
 5c. run the four baselines at full width on the card (dropout 0.1, 3
    rounds, FedAsync-SSL 12 arrivals): ``masked_pseudo_ce`` (and its
    backward) once a client step, ``staleness_agg`` once a FedAvg round and
@@ -61,7 +77,9 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    resident then paged, bit for bit; then M = 1,000,000 at the fleet width
    (conv 8/8, hidden 16) with 512 participants, paged (1 warm-up round, 2
    timed), whose client state on the device must equal that of M = 1,000
-   with the same participants;
+   with the same participants; (iii) M = 1,000 at full width chunked,
+   resident then paged, bit for bit, whose upload-encode stage's own
+   peak device memory must be below the flat resident run's;
 6. serve qwen2-1.5b at full width (random weights, bf16): 8 requests
    of 512-2048 tokens, bucket 2048, 32 new tokens, through
    ``serve_batch`` with the flash kernel, the counters showing exactly
@@ -69,7 +87,8 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    logits with the kernel against the plain attention on the card, and a
    2-layer float32 model of the same width on the card against the CPU;
 7. print one ``{"kernels": [...], "paths": ..., "serve": ...,
-   "baselines": ..., "fleet": ...}`` line, then the result line
+   "baselines": ..., "baselines_card_vs_cpu": ..., "chunked_card_vs_cpu":
+   ..., "fleet": ...}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
@@ -621,6 +640,161 @@ def check_csr_quant(torch, ops, ref, comm_mod, dev, gen, flushes):
             "max_abs_err": 0.0, **shapes[0], "other_shapes": shapes[1:]}
 
 
+# the slice's chunked layout of the paper CNN: 9 leaf-aligned chunks of
+# widths 99,072 (conv, keep 0.5), 256, 5 x 1,000,000, 111,808 and 2,313
+# (out, keep 0.5)
+CHUNK = {"chunk_size": 1_000_000, "layer_keep_frac": {"conv": 0.5,
+                                                      "out": 0.5}}
+CHUNK_TIMED = (99_072, 1_000_000, 2_313)
+
+
+def chunk_plan(port, comm_mod):
+    """The slice layout's per-chunk plan (``SparseComm.chunk_plan``)."""
+    layout = port.ParamLayout.from_template(
+        port.cnn_template(port.CNNConfig()), CHUNK["chunk_size"],
+        overrides=CHUNK["layer_keep_frac"])
+    return comm_mod.SparseComm("p0.2", layout=layout).chunk_plan()
+
+
+def _chunk_inputs(torch, ref, comm_mod, gen, dev, p, k):
+    """One chunk's kernel inputs at ``k`` rows: update-sized deltas, their
+    thresholds at the chunk's keep fraction, the payload's residual (what
+    the capped payload leaves) and its thresholds, and (k, nc) weights."""
+    x = _delta(torch, gen, dev, k, p["nc"])
+    thr = comm_mod.local_quantile_thresholds(x, p["keep"] or 0.2)
+    res = (x - ref.csr_capped_mask_ref(x, thr, p["cap"])[0]).contiguous()
+    w = torch.rand((k,), generator=gen, device=dev)
+    return SimpleNamespace(x=x, thr=thr, res=res, w=w / w.sum(),
+                           rthr=comm_mod.local_quantile_thresholds(
+                               res, p["rfrac"]))
+
+
+def _chunk_calls(torch, ops, ref, p, inp, what):
+    """The kernel calls a chunk's round makes on ``inp``, each paired with
+    its plain version on the same inputs: ``what`` "upload" (compact at
+    cap, quantize int8 and fp16, the blend's staleness_agg), "residual"
+    (compact at rcap) or "chain" (compact, quantize). Returns [(label,
+    kernel call, plain call)]; a quantize takes its compact's kernel
+    output, so a call list runs in order."""
+    nc, cap = p["nc"], p["cap"]
+    k = inp.x.shape[0]
+    tag = f"({k}, {nc})"
+    if what == "residual":
+        return [(f"csr_compact residual {tag} rcap {p['rcap']}",
+                 lambda: ops.csr_compact(inp.res, inp.rthr, p["rcap"]),
+                 lambda: ref.csr_compact2d_ref(inp.res, inp.rthr,
+                                               p["rcap"]))]
+    out = {}
+
+    def compact():
+        out["c"] = ops.csr_compact(inp.x, inp.thr, cap)
+        return out["c"]
+
+    def quant(q_dtype):
+        def kern():
+            v, i, nnz = out["c"]
+            return ops.csr_quantize(v, i, torch.clamp(nnz, max=cap), nc,
+                                    q_dtype=q_dtype)
+
+        def plain():
+            v, i, nnz = out["c"]
+            return _quant_plain(ref, v, i, torch.clamp(nnz, max=cap), nc,
+                                q_dtype)
+        return kern, plain
+
+    calls = [(f"csr_compact {what} {tag} cap {cap}", compact,
+              lambda: ref.csr_compact2d_ref(inp.x, inp.thr, cap))]
+    for q_dtype in (("int8", "fp16") if what == "upload" else ("int8",)):
+        calls.append((f"csr_quant {q_dtype} {what} {tag}", *quant(q_dtype)))
+    if what == "upload":
+        calls.append((f"staleness_agg {tag}",
+                      lambda: ops.staleness_agg(inp.x, inp.w),
+                      lambda: ref.staleness_agg_ref(inp.x, inp.w)))
+    return calls
+
+
+def _hold(torch, calls):
+    """Launch every kernel call in order with no synchronisation between
+    them, then hold each result against its plain version bit for bit."""
+    got = [(label, kern()) for label, kern, _ in calls]
+    torch.cuda.synchronize()
+    for (label, out), (_, _, plain) in zip(got, calls):
+        want = plain()
+        out = out if isinstance(out, tuple) else (out,)
+        want = want if isinstance(want, tuple) else (want,)
+        same = [_same_bits(torch, a, b) for a, b in zip(out, want)]
+        check(len(out) == len(want) and all(same),
+              f"{label}: kernel differs from plain ({same})")
+    return len(calls)
+
+
+def check_chunk_widths(torch, ops, ref, comm_mod, port, dev, gen, flushes):
+    """``csr_compact``, ``csr_quant`` (int8, fp16) and ``staleness_agg`` bit
+    for bit at every distinct chunk width of the slice layout at K = 6 and
+    K = 1 with the plan's caps and rcaps; then all nine chunks' calls of
+    one csr_q + EF round back to back on one stream (upload, residual,
+    chain per chunk), so the kernels' per-stream workspaces see every
+    shape change; then one call of each kernel at three widths timed
+    under the read-only flush. Returns {kernel: [timed shape entries]}."""
+    plan = chunk_plan(port, comm_mod)
+    widths = {}
+    for p in plan:
+        widths.setdefault(p["nc"], p)
+    held = 0
+    for nc, p in widths.items():
+        for k in (6, 1):
+            inp = _chunk_inputs(torch, ref, comm_mod, gen, dev, p, k)
+            for what in ("upload", "residual"):
+                held += _hold(torch, _chunk_calls(torch, ops, ref, p, inp,
+                                                  what))
+    log(f"  chunk widths {sorted(widths)} at K = 6 and 1: {held} calls "
+        "bit-exact")
+    seq = []
+    for p in plan:
+        up = _chunk_inputs(torch, ref, comm_mod, gen, dev, p, 6)
+        chain = _chunk_inputs(torch, ref, comm_mod, gen, dev, p, 1)
+        seq += _chunk_calls(torch, ops, ref, p, up, "upload") + \
+            _chunk_calls(torch, ops, ref, p, up, "residual") + \
+            _chunk_calls(torch, ops, ref, p, chain, "chain")
+    n = _hold(torch, seq)
+    log(f"  the {len(plan)} chunks' calls back to back on one stream: {n} "
+        "calls bit-exact")
+    timed = {"csr_compact": [], "csr_quant": [], "staleness_agg": []}
+    for nc in CHUNK_TIMED:
+        p = widths[nc]
+        inp = _chunk_inputs(torch, ref, comm_mod, gen, dev, p, 6)
+        x, thr, cap = inp.x, inp.thr, p["cap"]
+        timed["csr_compact"].append({
+            "shape": [6, nc], "case": "chunk upload", "cap": cap,
+            **csr_compact_call(torch, ops, x, thr, cap, flushes),
+            "plain_ms": time_ms(torch, lambda: ref.csr_compact2d_ref(
+                x, thr, cap), reps=10, flush=flushes.clean),
+            "library_ms": None})
+        v, i, nnz = ops.csr_compact(x, thr, cap)
+        st = torch.clamp(nnz, max=cap)
+        timed["csr_quant"].append({
+            "shape": [6, cap], "n": nc, "case": "chunk upload",
+            **csr_quant_call(torch, ops, v, i, st, nc, "int8", flushes),
+            "plain_ms": time_ms(torch, lambda: _quant_plain(
+                ref, v, i, st, nc, "int8"), reps=10, flush=flushes.clean),
+            "library_ms": None})
+        w = inp.w
+        timed["staleness_agg"].append({
+            "shape": [6, nc], "case": "chunk blend", **_timed(
+                torch, lambda: ops.staleness_agg(x, w),
+                lambda: ref.staleness_agg_ref(x, w), 7 * 4 * nc + 4 * 6,
+                2 * 6 * nc, reps=30, flushes=flushes,
+                library=lambda: w @ x)})
+    for name, shapes in timed.items():
+        for sh in shapes:
+            log(f"  {name} chunk {sh['shape']}: kernel {sh['ms']:.5f} ms "
+                f"(events {sh['event_ms']:.5f}), plain {sh['plain_ms']:.5f} "
+                f"ms, library {sh['library_ms']}, bound "
+                f"{sh['bound_ms']:.6f} ms ({sh['bound_by']}), "
+                f"{sh['bound_ms'] / sh['ms']:.0%} of it")
+    return timed
+
+
 def _bf16_ulps_apart(torch, a, b, atol=0.0):
     """Largest distance of ``a`` from ``b`` (bf16 tensors), less ``atol``,
     in units of one bf16 ulp at the larger magnitude of each pair."""
@@ -907,6 +1081,27 @@ def trainer_gpu_vs_cpu(torch, port, rounds=2):
     _witness(np, ga, ca, "card vs CPU")
 
 
+def chunked_gpu_vs_cpu(torch, port, rounds=2):
+    """The chunked trainer (the slice layout: 9 chunks, conv and out kept
+    at 0.5) on the card against the CPU from the same initial weights,
+    sequential engine (the stacked round body), full width, dropout 0:
+    the cross-engine criteria plus max |diff| <= 1e-3."""
+    import numpy as np
+    cnn = port.CNNConfig(dropout=0.0)
+    gen = torch.Generator().manual_seed(3)
+    init = port.params_to_numpy(port.init_cnn(cnn, gen))
+    g, c = (_trainer_run(torch, port, cnn, init, dev, rounds, **CHUNK)
+            for dev in ("cuda", "cpu"))
+    check(g.tr.chunked and g.tr.layout.num_chunks == 9,
+          f"chunked run has layout {g.tr.layout}")
+    _cross_criteria(np, g, c, f"chunked card vs CPU after {rounds} rounds")
+    worst, outside, _ = _param_diff(np, g.params, c.params)
+    return {"max_diff": worst, "outside_atol_rtol": outside,
+            "aco": [g.out["aco"], c.out["aco"]],
+            "accuracy": [g.out["metrics"]["accuracy"],
+                         c.out["metrics"]["accuracy"]]}
+
+
 def engines_on_card(torch, port, rounds=2):
     """The batched engine against the sequential one, both on the card,
     from the same initial weights with the paper's dropout 0.1: both draw
@@ -967,11 +1162,37 @@ PER_ROUND = {
 PAGED_PATHS = (("sequential", "csr_q", True), ("batched", "csr_q", True),
                ("batched", "dense_masked", True))
 PATH_KERNELS = {**PATHS, ("batched", "dense_masked", True): DENSE_KERNELS}
+# phase 5's chunked paths under the slice layout (``CHUNK``), (engine,
+# wire, EF, store): both engines run the stacked round body, whose every
+# encode stage goes chunk by chunk, so each stage's launches are the flat
+# batched round's times the 9 chunks (upload, chain and with EF the
+# residuals compacted, upload and chain quantized, the blend's base sum)
+CHUNK_PATHS = (("batched", "csr", False, "resident"),
+               ("batched", "csr_q", True, "resident"),
+               ("sequential", "csr_q", True, "resident"),
+               ("batched", "csr_q", True, "paged"))
+CHUNK_PER_ROUND = {
+    ("csr", False): {"csr_compact": 18, "staleness_agg": 9},
+    ("csr_q", True): {"csr_compact": 27, "csr_quant": 18,
+                      "staleness_agg": 9}}
+FLAT_CHUNK_SIZE = 6_000_000     # >= N: resolves to the flat path
 
 
-def path_name(engine, wire, ef, store="resident"):
+def chunk_launches(kernel, sh, paths):
+    """The launches of ``kernel`` at a timed chunk shape's width on each
+    chunked phase-5 path, counted by the wrapper in that path's run and
+    split by the call's rows: {path: {"rows x width": launches}}."""
+    width = sh.get("n", sh["shape"][1])
+    return {p: {f"{rows}x{w}": c for name, rows, w, c in
+                r["launches_by_shape"] if name == kernel and w == width}
+            for p, r in paths.items() if r.get("chunk_stored_share")}
+
+
+def path_name(engine, wire, ef, store="resident", chunk=None):
     return f"{engine}+{wire}" + ("+ef" if ef else "") + \
-        ("+paged" if store == "paged" else "")
+        ("+paged" if store == "paged" else "") + \
+        ("" if not chunk else "+chunked" if chunk == CHUNK else
+         f"+chunk_size={chunk['chunk_size']}")
 
 
 def params_digest(port, tr):
@@ -1013,11 +1234,12 @@ def store_seconds(tr):
 
 
 def drive_path(torch, port, ops, engine, wire, ef, rounds=3,
-               store="resident"):
+               store="resident", chunk=None):
     import numpy as np
     data = port.make_dataset("basic", scale=0.02)
     cfg = port.FedS3AConfig(rounds=rounds, wire_format=wire,
-                            error_feedback=ef, client_store=store)
+                            error_feedback=ef, client_store=store,
+                            **(chunk or {}))
     if (engine, wire, ef) != DEFAULT_PATH:
         cfg.engine = engine
     ops.reset_launches()
@@ -1032,9 +1254,13 @@ def drive_path(torch, port, ops, engine, wire, ef, rounds=3,
     t2 = time.perf_counter()
     store_s = store_seconds(tr)
     launches = dict(ops.LAUNCHES)
+    by_shape = sorted([*key, c] for key, c in ops.LAUNCHES_BY_SHAPE.items())
     peak = torch.cuda.max_memory_allocated()
-    name = path_name(engine, wire, ef, store)
+    name = path_name(engine, wire, ef, store, chunk)
     check(tr.engine == engine, f"{name} ran {tr.engine}")
+    check(tr.chunked == (chunk == CHUNK) and (not tr.chunked or
+                                              tr.layout.num_chunks == 9),
+          f"{name} ran layout {tr.layout}")
     n = port.cnn_param_count(tr.cnn)
     check(n == N_FULL, f"paper CNN has {n} parameters, expected {N_FULL}")
     params = port.params_to_numpy(tr.global_params)
@@ -1057,13 +1283,28 @@ def drive_path(torch, port, ops, engine, wire, ef, rounds=3,
            f"{store_s['drain_s'] / rounds:.4f}, windows "
            f"{store_s['window_s'] / rounds:.4f}; ")
         + f"launches {launches}")
+    share = tr.comm.chunk_stored_share() if tr.chunked else None
+    if share is not None:
+        log(f"  {name}: stored share a chunk (keep "
+            f"{[p['keep'] for p in tr.comm.chunk_plan()]}): uploads "
+            f"{[round(x, 6) for x in share['upload']]}, chain "
+            f"{[round(x, 6) for x in share['chain']]}")
+    per_round = CHUNK_PER_ROUND[(wire, ef)] if tr.chunked else \
+        PER_ROUND.get((engine, wire, ef))
     check_launches(launches, PATH_KERNELS[(engine, wire, ef)], name,
-                   PER_ROUND.get((engine, wire, ef)), rounds)
+                   per_round, rounds)
     return tr, launches, {"s_per_round": s_round, "setup_s": t1 - t0,
                           "accuracy": m["accuracy"], "aco": out["aco"],
                           "client_state_device_bytes": state,
                           "peak_device_bytes": peak,
-                          "store_host_s": store_s}
+                          "peak_delta_device_bytes":
+                          tr.peak_delta_device_bytes(),
+                          "store_host_s": store_s,
+                          "digest": params_digest(port, tr),
+                          "participants": [len(log.participants)
+                                           for log in tr.logs],
+                          "launches_by_shape": by_shape,
+                          "chunk_stored_share": share}
 
 
 def paged_twins(torch, port, ops, engine, wire, ef):
@@ -1074,8 +1315,7 @@ def paged_twins(torch, port, ops, engine, wire, ef):
     for store in ("resident", "paged"):
         tr, launches, res = drive_path(torch, port, ops, engine, wire, ef,
                                        store=store)
-        res.update(launches=launches, digest=params_digest(port, tr),
-                   participants=[len(log.participants) for log in tr.logs])
+        res["launches"] = launches
         out[store] = res
         del tr
         torch.cuda.empty_cache()
@@ -1086,6 +1326,51 @@ def paged_twins(torch, port, ops, engine, wire, ef):
     log(f"  {name} against its resident twin: {same}")
     check(all(same.values()), f"{name} differs from its resident twin: "
           f"{same}")
+    return out
+
+
+SAME_KEYS = ("accuracy", "aco", "participants", "digest")
+
+
+def chunked_paths(torch, port, ops, flat_csr):
+    """Phase 5's chunked paths (``CHUNK_PATHS``), each driven like the flat
+    ones with exact launches a round (``CHUNK_PER_ROUND``) and one more
+    round of batched csr_q + EF profiled: the sequential engine's run
+    must be the batched one's bit for bit (digest, accuracy, ACO,
+    participants), the paged run its resident twin's, and a chunk size
+    of N or more (``FLAT_CHUNK_SIZE``) must resolve to no layout and give
+    the flat batched + csr run ``flat_csr`` bit for bit."""
+    out = {}
+    for engine, wire, ef, store in CHUNK_PATHS:
+        tr, launches, res = drive_path(torch, port, ops, engine, wire, ef,
+                                       store=store, chunk=CHUNK)
+        res["launches"] = launches
+        if (engine, wire, ef, store) == ("batched", "csr_q", True,
+                                         "resident"):
+            res["profiled_round"] = profile_round(torch, tr.run_round)
+        out[path_name(engine, wire, ef, store, CHUNK)] = res
+        del tr
+        torch.cuda.empty_cache()
+    b = out["batched+csr_q+ef+chunked"]
+    for other in ("sequential+csr_q+ef+chunked",
+                  "batched+csr_q+ef+paged+chunked"):
+        same = {k: out[other][k] == b[k] for k in SAME_KEYS}
+        log(f"  {other} against batched+csr_q+ef+chunked: {same}")
+        check(all(same.values()), f"{other} differs: {same}")
+    chunk = {"chunk_size": FLAT_CHUNK_SIZE}
+    tr, launches, res = drive_path(torch, port, ops, "batched", "csr",
+                                   False, chunk=chunk)
+    check(tr.layout is None and not tr.chunked,
+          f"chunk_size {FLAT_CHUNK_SIZE} resolved to {tr.layout}")
+    same = {k: res[k] == flat_csr[k] for k in SAME_KEYS}
+    log(f"  chunk_size {FLAT_CHUNK_SIZE} against the flat batched+csr run: "
+        f"{same}")
+    check(all(same.values()), f"chunk_size {FLAT_CHUNK_SIZE} is not the "
+          f"flat run: {same}")
+    res["launches"] = launches
+    out[path_name("batched", "csr", False, chunk=chunk)] = res
+    del tr
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1226,6 +1511,69 @@ def _flipped_mask_loss(torch, real, rows, n_valid):
     return mpce
 
 
+TIE_REL = 1e-5     # a decision within rounding: max-prob within TIE_REL
+                   # (relative) of theta, or top-2 logits within TIE_REL
+                   # (relative) of each other
+
+
+def _recording(real, seen):
+    """``masked_pseudo_ce`` that keeps each call's logits and mask."""
+    def mpce(logits, threshold):
+        loss, mask = real(logits, threshold)
+        seen.append((logits.detach(), mask.detach()))
+        return loss, mask
+    return mpce
+
+
+def _near_decision(torch, logits):
+    """(n,) bool: rows within rounding of a pseudo-label decision."""
+    lg = logits.double().cpu()
+    maxp = torch.softmax(lg, dim=-1).amax(dim=-1)
+    top = lg.topk(2, dim=-1).values
+    return ((maxp - THETA).abs() <= TIE_REL * THETA) | \
+        ((top[:, 0] - top[:, 1]).abs()
+         <= TIE_REL * top.abs().amax(dim=-1))
+
+
+def _decisions(torch, a, b, n_valid):
+    """Rows (of the first ``n_valid``) whose pseudo-label argmax or mask
+    differ between calls ``a`` and ``b`` (each (logits, mask)); which of
+    them are within rounding of a decision on either side; and which
+    change the loss (the mask differs, or the argmax on a row masked in:
+    a masked-out row's label enters no loss)."""
+    (la, ma), (lb, mb) = a, b
+    la, lb = la[:n_valid].cpu(), lb[:n_valid].cpu()
+    ma, mb = ma[:n_valid].cpu() > 0, mb[:n_valid].cpu() > 0
+    label = la.argmax(dim=-1) != lb.argmax(dim=-1)
+    effective = (ma != mb) | (label & ma)
+    tie = _near_decision(torch, la) | _near_decision(torch, lb)
+    rows = torch.nonzero(label | (ma != mb)).flatten().tolist()
+    return rows, [bool(tie[r]) for r in rows], \
+        [bool(effective[r]) for r in rows]
+
+
+def _row_detail(torch, call, rows):
+    """Per row of ``call`` (logits, mask): argmax, mask, max-prob and the
+    top-2 logits' relative gap, for the record."""
+    lg, mask = call[0][rows].double().cpu(), call[1][rows].cpu()
+    top = lg.topk(2, dim=-1).values
+    return [{"argmax": int(lg[i].argmax()), "mask": bool(mask[i] > 0),
+             "max_prob": float(torch.softmax(lg[i], dim=-1).max()),
+             "top2_rel_gap": float((top[i, 0] - top[i, 1]).abs()
+                                   / top[i].abs().max())}
+            for i in range(len(rows))]
+
+
+def _sign_flips(torch, new, ref_new, old):
+    """Elements whose update on the card, ``new - old``, has another sign
+    than the CPU's, ``ref_new - old``, one of them nonzero."""
+    flips = 0
+    for k in old:
+        a, b = torch.sign(new[k] - old[k]), torch.sign(ref_new[k] - old[k])
+        flips += int(((a != b) & ((a != 0) | (b != 0))).sum())
+    return flips
+
+
 def local_ssl_stepwise(torch, port, init, cpu_run, rounds=2):
     """Local-SSL card against CPU one update at a time. Its run is 2 x
     (a 5-step server epoch + a 91-step client epoch over the pooled data)
@@ -1241,7 +1589,16 @@ def local_ssl_stepwise(torch, port, init, cpu_run, rounds=2):
     on ``PLANT_ROWS`` rows must leave the run bound. The steps follow
     ``LocalSSL.train``'s schedule (one Adam step a batch; a server epoch
     is one unit): the CPU's last state must be ``cpu_run``'s parameters (a
-    whole ``train()`` on the CPU) bit for bit."""
+    whole ``train()`` on the CPU) bit for bit.
+
+    The decision trace: at every client step the card's pseudo-label
+    argmax and mask from the CPU's state are held against the CPU's; a row
+    that differs must be within rounding of a decision (``TIE_REL``), or
+    the port is at fault. A free run on the card from the same initial
+    weights is stepped beside the CPU's, and the first step at which any
+    of its decisions differs from the CPU's is recorded with its rows and
+    the parameter gap there. The update's sign flips against the CPU's
+    are counted at every step."""
     import numpy as np
     from repro_torch.core import pseudo_label
     from repro_torch.optimizer import adam_init
@@ -1259,17 +1616,32 @@ def local_ssl_stepwise(torch, port, init, cpu_run, rounds=2):
            adam_init(c.global_params)]
     real_ops = pseudo_label.kops
     runs = {"sound": [], "skipped": [], "mask_flip": []}
+    free = [_to(t, dev) for t in cpu]     # the card's free run
+    trace = {"steps": 0, "client_steps": 0, "rows_compared": 0,
+             "rows_differ": 0, "rows_differ_tie": 0, "nontie": [],
+             "sign_flips": [], "free_rows_differ": 0,
+             "free_rows_effective": 0, "free_first": None,
+             "free_first_effective": None}
     for _ in range(rounds):
         units = [None] + [x_all[b * B:(b + 1) * B] for b in range(nb)]
         for xb in units:
-            def step(tr, st):
+            def step(tr, st, seen=None):
                 if xb is None:        # the server epoch, Adam state 1
                     p, o, _ = tr.server_epoch(st[0], st[1], sx, sy, lr, None)
                     return [p, o, st[2]]
-                p, o, _ = tr.client_epoch(st[0], st[2], xb, lr, None)
+                if seen is not None:
+                    pseudo_label.kops = SimpleNamespace(
+                        masked_pseudo_ce=_recording(
+                            real_ops.masked_pseudo_ce, seen))
+                try:
+                    p, o, _ = tr.client_epoch(st[0], st[2], xb, lr, None)
+                finally:
+                    pseudo_label.kops = real_ops
                 return [p, st[1], o]
             start = [_to(t, dev) for t in cpu]
-            taken = {"sound": step(g, start)[0], "skipped": start[0]}
+            seen = {"card": [], "cpu": [], "free": []}
+            taken = {"sound": step(g, start, seen["card"])[0],
+                     "skipped": start[0]}
             if xb is not None:
                 pseudo_label.kops = SimpleNamespace(
                     masked_pseudo_ce=_flipped_mask_loss(
@@ -1280,10 +1652,44 @@ def local_ssl_stepwise(torch, port, init, cpu_run, rounds=2):
                         g, [_to(t, dev) for t in cpu])[0]
                 finally:
                     pseudo_label.kops = real_ops
-            cpu = step(c, cpu)
+            free_before = free[0]
+            free = step(g, free, seen["free"])
+            prev_cpu = cpu[0]
+            cpu = step(c, cpu, seen["cpu"])
             ref = _to(cpu[0], dev)
             for what, p in taken.items():
                 runs[what].append(_update_gap(torch, p, ref, start[0], tol))
+            trace["sign_flips"].append(_sign_flips(torch, taken["sound"], ref,
+                                                   start[0]))
+            i = trace["steps"]
+            trace["steps"] += 1
+            if xb is None:
+                continue
+            trace["client_steps"] += 1
+            trace["rows_compared"] += len(xb)
+            rows, tie, _ = _decisions(torch, seen["card"][0],
+                                      seen["cpu"][0], len(xb))
+            trace["rows_differ"] += len(rows)
+            trace["rows_differ_tie"] += sum(tie)
+            trace["nontie"] += [{"step": i, "row": r} for r, t in
+                                zip(rows, tie) if not t]
+            rows, tie, eff = _decisions(torch, seen["free"][0],
+                                        seen["cpu"][0], len(xb))
+            trace["free_rows_differ"] += len(rows)
+            trace["free_rows_effective"] += sum(eff)
+            for key, pick in (("free_first", rows),
+                              ("free_first_effective",
+                               [r for r, e in zip(rows, eff) if e])):
+                if trace[key] is None and pick:
+                    trace[key] = {
+                        "step": i, "rows": pick,
+                        "within_rounding": [tie[rows.index(r)]
+                                            for r in pick],
+                        "param_gap_max": max(
+                            float((free_before[k].cpu() - prev_cpu[k])
+                                  .abs().max()) for k in prev_cpu),
+                        "card": _row_detail(torch, seen["free"][0], pick),
+                        "cpu": _row_detail(torch, seen["cpu"][0], pick)}
     out = {"steps": len(runs["sound"]), "tol": tol, "step_rel_bound":
            STEP_REL, "step_share_bound": STEP_SHARE, "run_rel_bound":
            RUN_REL, "plant_rows": PLANT_ROWS}
@@ -1297,6 +1703,11 @@ def local_ssl_stepwise(torch, port, init, cpu_run, rounds=2):
             "step_share_max": max(x[2] for x in seen),
             "steps_outside": sum(r > STEP_REL or x[2] > STEP_SHARE
                                  for r, x in zip(rels, seen))}
+    flips = trace.pop("sign_flips")
+    out["decisions"] = {**trace, "tie_rel": TIE_REL,
+                        "sign_flips_step0": flips[0],
+                        "sign_flips_max": max(flips),
+                        "sign_flips_median": statistics.median(flips)}
     so, sk, mf = out["sound"], out["skipped"], out["mask_flip"]
     log(f"  local-ssl update by update, card vs CPU: {out['steps']} updates "
         f"(server epochs counted as one); the card's update off the CPU's "
@@ -1310,6 +1721,31 @@ def local_ssl_stepwise(torch, port, init, cpu_run, rounds=2):
         f"on {PLANT_ROWS} rows {mf['run_rel']:.3g} over the run, a step "
         f"{mf['step_rel_min']:.3g} to {mf['step_rel_max']:.3g}, outside the "
         f"step bounds at {mf['steps_outside']} of {len(runs['mask_flip'])}")
+    d = out["decisions"]
+    log(f"  local-ssl decision trace, card from the CPU's state: "
+        f"{d['steps']} steps ({d['client_steps']} with pseudo-labels), "
+        f"{d['rows_compared']} rows; argmax or mask differ on "
+        f"{d['rows_differ']} rows, {d['rows_differ_tie']} of them within "
+        f"{TIE_REL:g} (relative) of a decision, {len(d['nontie'])} not "
+        f"({d['nontie'][:5]}); update sign flips against the CPU's: "
+        f"{d['sign_flips_step0']} at step 0, median "
+        f"{d['sign_flips_median']:g}, most {d['sign_flips_max']}")
+    log(f"  local-ssl free runs (card and CPU from the same weights): "
+        f"decisions differ on {d['free_rows_differ']} rows of the run, "
+        f"{d['free_rows_effective']} of them changing the loss")
+    for key, what in (("free_first", "differing decision"),
+                      ("free_first_effective", "decision changing the "
+                                               "loss")):
+        ff = d[key]
+        log(f"    first {what}: " + (
+            "none" if ff is None else
+            f"step {ff['step']}, rows {ff['rows']} (within rounding "
+            f"{ff['within_rounding']}), parameter gap there "
+            f"{ff['param_gap_max']:.3g}; card {ff['card']}, CPU "
+            f"{ff['cpu']}"))
+    check(not d["nontie"], f"Local-SSL: {len(d['nontie'])} pseudo-label "
+          f"decisions differ from equal state on rows not within rounding: "
+          f"{d['nontie'][:10]}")
     # read out whole before any check, so a failing run still shows them
     for i, (g2, u2, share) in enumerate(runs["sound"]):
         check(_rel(g2, u2) <= STEP_REL and share <= STEP_SHARE,
@@ -1428,13 +1864,41 @@ FLEET_M_BIG, FLEET_K = 1_000_000, 512     # (ii): the fleet width
 PEAK_SLACK = 64 << 20     # (ii): peak device bytes may exceed M = 1,000's
 
 
+def stage_peak(torch, tr, method):
+    """One more round with the trainer's ``method`` (the upload-encode
+    stage: ``_upload`` flat, ``_chunk_upload`` chunked) wrapped to read
+    its own peak: ``max_memory_allocated`` above what was allocated when
+    it began, the peak statistics reset at its start. Run after the timed
+    rounds, once their results are read; the wrapper is gone on return."""
+    inner = getattr(tr, method)
+    peaks = []
+
+    def wrapped(*args, **kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        return out
+
+    setattr(tr, method, wrapped)
+    try:
+        tr.run_round()
+    finally:
+        delattr(tr, method)
+    return peaks[0]
+
+
 def drive_fleet(torch, port, ops, M, K, store, cnn, rounds, warmup=0,
-                paged_dir=None, profile=False):
+                paged_dir=None, profile=False, chunk=None, stage=False):
     """Batched + csr + EF on ``make_fleet_dataset(M, pool=64,
-    scale=0.001)``, K participants a round, the counters reset just before
-    and the peak device memory measured from there; ``warmup`` of the
-    rounds untimed; with ``profile``, one more round under the profiler
-    after the results are read."""
+    scale=0.001)``, K participants a round (``chunk``: the chunked
+    layout's config), the counters reset just before and the peak device
+    memory measured from there; ``warmup`` of the rounds untimed; with
+    ``stage``, one more round after the results are read that measures
+    the upload-encode stage's own peak (``stage_peak``); with
+    ``profile``, one more round under the profiler."""
     data = port.make_fleet_dataset(M, pool=FLEET_POOL, scale=FLEET_SCALE,
                                    seed=0)
     ops.reset_launches()
@@ -1444,7 +1908,7 @@ def drive_fleet(torch, port, ops, M, K, store, cnn, rounds, warmup=0,
     tr = port.FedS3ATrainer(data, port.FedS3AConfig(
         rounds=rounds, C=K / M, cnn=cnn, engine="batched",
         wire_format="csr", error_feedback=True, client_store=store,
-        paged_dir=paged_dir))
+        paged_dir=paged_dir, **(chunk or {})))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for _ in range(warmup):
@@ -1458,13 +1922,18 @@ def drive_fleet(torch, port, ops, M, K, store, cnn, rounds, warmup=0,
     store_s = store_seconds(tr)
     m = tr.evaluate()
     launches = dict(ops.LAUNCHES)
-    name = f"fleet M={M} K={K} {store}"
+    peak = torch.cuda.max_memory_allocated()
+    name = f"fleet M={M} K={K} {store}" + (" chunked" if chunk else "")
     parts = [len(log.participants) for log in tr.logs]
     check(parts == [K] * rounds, f"{name}: participants a round {parts}")
     check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()),
           f"{name}: metrics out of range: {m}")
-    check_launches(launches, CSR_KERNELS, name, {"csr_compact": 3}, rounds)
-    res = {"M": M, "K": K, "store": store, "rounds": rounds,
+    check(tr.chunked == bool(chunk), f"{name}: layout {tr.layout}")
+    check_launches(launches, CSR_KERNELS, name,
+                   {"csr_compact": 27, "staleness_agg": 9} if chunk else
+                   {"csr_compact": 3}, rounds)
+    res = {"M": M, "K": K, "store": store, "chunked": bool(chunk),
+           "rounds": rounds,
            "warmup_rounds": warmup, "n_params": int(tr._global_flat.numel()),
            "setup_s": t1 - t0, "s_per_round": (t3 - t2) / (rounds - warmup),
            "accuracy": m["accuracy"], "aco": tr.comm.aco,
@@ -1474,11 +1943,16 @@ def drive_fleet(torch, port, ops, M, K, store, cnn, rounds, warmup=0,
            "client_state_host_bytes": tr.client_state_host_bytes(),
            "resident_equiv_bytes": tr.client_state_resident_equiv_bytes(),
            "residual_store_bytes": tr.residual_store_bytes(),
-           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "peak_device_bytes": peak,
+           "peak_delta_device_bytes": tr.peak_delta_device_bytes(),
+           "upload_stage_peak_bytes": None,
            "digest": params_digest(port, tr), "launches": launches,
            "paged_dir": paged_dir is not None,
            "store_host_s_per_round": None if store_s is None else
            {k: v / rounds for k, v in store_s.items()}}
+    if stage:
+        res["upload_stage_peak_bytes"] = stage_peak(
+            torch, tr, "_chunk_upload" if chunk else "_upload")
     log(f"  {name}: N = {res['n_params']}, set-up {res['setup_s']:.2f} s, "
         f"{res['s_per_round']:.3f} s a round ({rounds - warmup} timed), "
         f"forced a round {res['forced']}, accuracy {m['accuracy']:.6f}, ACO "
@@ -1486,7 +1960,10 @@ def drive_fleet(torch, port, ops, M, K, store, cnn, rounds, warmup=0,
         f"{res['client_state_device_bytes']} B, host (nominal) "
         f"{res['client_state_host_bytes']} B, resident equivalent "
         f"{res['resident_equiv_bytes']} B, peak device memory "
-        f"{res['peak_device_bytes']} B; paged store host s a round "
+        f"{res['peak_device_bytes']} B, upload stage's own peak "
+        f"{res['upload_stage_peak_bytes']} B (the reference's analytic "
+        f"peak_delta_device_bytes {res['peak_delta_device_bytes']} B); "
+        f"paged store host s a round "
         f"{res['store_host_s_per_round']}; launches {launches}")
     if profile:
         res["profiled_round"] = profile_round(torch, tr.run_round,
@@ -1515,7 +1992,8 @@ def fleet(torch, port, ops):
     paged, 1 warm-up and 2 timed rounds, beside M = 1,000 with the same K:
     the device's client-state bytes must be equal."""
     full = [drive_fleet(torch, port, ops, FLEET_M, FLEET_K_FULL, store,
-                        port.CNNConfig(), 3, profile=True)
+                        port.CNNConfig(), 3, profile=True,
+                        stage=store == "resident")
             for store in ("resident", "paged")]
     same = {k: full[0][k] == full[1][k] for k in ("accuracy", "aco",
                                                   "participants", "digest",
@@ -1559,7 +2037,24 @@ def fleet(torch, port, ops):
           + PEAK_SLACK, f"peak device memory grows with M: "
           f"{small['peak_device_bytes']} B at M = {FLEET_M}, "
           f"{big['peak_device_bytes']} B at M = {FLEET_M_BIG}")
+    chunked = [drive_fleet(torch, port, ops, FLEET_M, FLEET_K_FULL, store,
+                           port.CNNConfig(), 3, chunk=CHUNK, stage=True)
+               for store in ("resident", "paged")]
+    same = {k: chunked[0][k] == chunked[1][k] for k in ("accuracy", "aco",
+                                                        "participants",
+                                                        "digest",
+                                                        "launches")}
+    flat_peak = full[0]["upload_stage_peak_bytes"]
+    log(f"  (iii) M = {FLEET_M} chunked: paged against resident {same}; "
+        f"upload stage's own peak: flat resident {flat_peak} B, chunked "
+        f"resident {chunked[0]['upload_stage_peak_bytes']} B, paged "
+        f"{chunked[1]['upload_stage_peak_bytes']} B")
+    check(all(same.values()), f"fleet M = {FLEET_M} chunked: paged differs "
+          f"from resident: {same}")
+    check(all(c["upload_stage_peak_bytes"] < flat_peak for c in chunked),
+          "the chunked upload stage's peak is not below the flat one's")
     return {"full_width": full, "fleet_width": [small, big],
+            "chunked_full_width": chunked,
             "nominal_host_page_bytes": nominal}
 
 
@@ -1746,7 +2241,7 @@ def main():
         sys.exit("chip_smoke: CUDA is not available; this smoke test needs "
                  "one GPU")
     from repro_torch.configs.feds3a_cnn import CNNConfig
-    from repro_torch.core import baselines
+    from repro_torch.core import ParamLayout, baselines
     from repro_torch.core import sparse_comm as comm_mod
     from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
     from repro_torch.data import make_dataset, make_fleet_dataset
@@ -1754,7 +2249,7 @@ def main():
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import lm
-    from repro_torch.models.cnn import cnn_param_count, init_cnn
+    from repro_torch.models.cnn import cnn_param_count, cnn_template, init_cnn
     from repro_torch.training.steps import make_prefill_step, make_serve_step
     from repro_torch.weights import (params_to_numpy, tree_from_numpy,
                                      tree_to_numpy)
@@ -1765,6 +2260,7 @@ def main():
         FedS3ATrainer=FedS3ATrainer, make_dataset=make_dataset,
         make_fleet_dataset=make_fleet_dataset, baselines=baselines,
         cnn_param_count=cnn_param_count, init_cnn=init_cnn,
+        ParamLayout=ParamLayout, cnn_template=cnn_template,
         params_to_numpy=params_to_numpy, get_config=get_config, lm=lm,
         serve_batch=serve_batch, make_prefill_step=make_prefill_step,
         make_serve_step=make_serve_step,
@@ -1803,6 +2299,12 @@ def main():
                check_staleness_agg(torch, ops, ref, dev, gen, flushes),
                check_sparse_delta(torch, ops, ref, dev, gen, flushes),
                check_csr_quant(torch, ops, ref, comm_mod, dev, gen, flushes)]
+    log("phase 3 (chunks): csr_compact, csr_quant, staleness_agg at the "
+        "slice layout's chunk widths")
+    for name, shapes in check_chunk_widths(torch, ops, ref, comm_mod, port,
+                                           dev, gen, flushes).items():
+        next(k for k in kernels if k["name"] == name)["chunk_shapes"] = \
+            shapes
     del flushes
     s_serve = max(len(p) for p in serve_prompts(
         np, get_config(SERVE_ARCH).vocab_size))
@@ -1828,6 +2330,7 @@ def main():
         "width, dropout 0); then batched vs sequential on the card (dropout "
         "0.1)")
     trainer_gpu_vs_cpu(torch, port)
+    chunk_parity = chunked_gpu_vs_cpu(torch, port)
     engines_on_card(torch, port)
     log("phase 4c: the baselines on the card vs on the CPU (full width, "
         "dropout 0, scale 0.02, 2 rounds; FedAsync-SSL 8 arrivals)")
@@ -1849,6 +2352,9 @@ def main():
         if (engine, wire, ef) not in PATHS:
             paths[path_name(engine, wire, ef)] = twins["resident"]
         paths[path_name(engine, wire, ef, "paged")] = twins["paged"]
+    log(f"phase 5 (chunked): {len(CHUNK_PATHS)} paths under the slice "
+        f"layout, then chunk_size {FLAT_CHUNK_SIZE} against the flat run")
+    paths.update(chunked_paths(torch, port, ops, paths["batched+csr"]))
     log("phase 5c: the baselines at full width (dropout 0.1, 3 rounds; "
         "FedAsync-SSL 12 arrivals), beside FedS3A batched + csr "
         f"({paths['batched+csr']['s_per_round']:.3f} s a round, accuracy "
@@ -1874,11 +2380,16 @@ def main():
             by_path["batched+dense_masked"] or \
             by_path["batched+csr_q+ef"] or by_path["serve"]
         k["launches_by_path"] = by_path
+        for sh in k.get("chunk_shapes", ()):
+            sh["launches"] = chunk_launches(k["name"], sh, paths)
+            log(f"  {k['name']} chunk width {sh.get('n', sh['shape'][1])}: "
+                f"launches by (rows x width) {sh['launches']}")
     del paths["serve"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "paths": paths, "serve": serve,
                       "baselines": base, "baselines_card_vs_cpu":
-                      base_parity, "fleet": fleet_res, "gpu": smi}),
+                      base_parity, "chunked_card_vs_cpu": chunk_parity,
+                      "fleet": fleet_res, "gpu": smi}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,12 +57,21 @@ class VersionedBaseStore:
     def slot(self, version):
         return int(version) % self.depth
 
-    def gather(self, client_ids):
-        """(K, N) base rows for ``client_ids``: a ring lookup by version."""
-        slots = torch.as_tensor(
+    def slots_for(self, client_ids):
+        """(K,) ring slot of each client's base version, on the ring's
+        device."""
+        return torch.as_tensor(
             self.client_version[np.asarray(client_ids)] % self.depth,
             device=self.ring.device)
-        return self.ring.index_select(0, slots)
+
+    def gather(self, client_ids):
+        """(K, N) base rows for ``client_ids``: a ring lookup by version."""
+        return self.ring.index_select(0, self.slots_for(client_ids))
+
+    def gather_cols(self, slots, s, e):
+        """(K, e - s) columns ``[s, e)`` of the ring rows ``slots``
+        (``ring[:, s:e][slots]``): one chunk's bases, with no (K, N) copy."""
+        return self.ring[:, s:e].index_select(0, slots).contiguous()
 
     def latest(self):
         """R_version, the canonical reconstruction of the newest global."""

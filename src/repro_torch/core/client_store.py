@@ -33,7 +33,8 @@ pinned buffer at once, the drain waiting only for that copy's event.
 Copies change no bit.
 
 :class:`ResidentStore` is the resident layout behind the same interface:
-one dense (M, n) residual tensor on the device, written at once.
+one dense (M, n) residual tensor on the device, or under the chunked
+parameter axis (M, rcap) CSR pages, written at once.
 
 Per-client versions stay with ``VersionedBaseStore`` (host numpy there);
 :meth:`adopt_versions` only references them so that :meth:`host_bytes`
@@ -98,16 +99,30 @@ def _stage_to_host(arrays):
 
 
 class ResidentStore:
-    """The resident layout behind :class:`PagedClientStore`'s interface:
-    every client's dense residual row in one (M, n) float32 tensor on
-    ``device``; a scatter or retire writes at once."""
+    """The resident layout behind :class:`PagedClientStore`'s interface, on
+    ``device``, written at once by a scatter or retire. ``layout``:
+    ``"dense"`` keeps every client's dense residual row in one (M, n)
+    float32 tensor; ``"csr"`` (the chunked parameter axis) keeps (M, rcap)
+    float32 values and int32 GLOBAL column indices, zero pads at column
+    0."""
 
-    layout = "dense"
-
-    def __init__(self, M, n, *, device):
+    def __init__(self, M, n, *, device, layout="dense", rcap=None):
+        if layout not in ("dense", "csr"):
+            raise ValueError(f"layout must be 'dense' or 'csr', got "
+                             f"{layout!r}")
         self.M, self.n = int(M), int(n)
+        self.layout = layout
         self.device = torch.device(device)
-        self.rows = torch.zeros((self.M, self.n), device=self.device)
+        if layout == "dense":
+            self.rows = torch.zeros((self.M, self.n), device=self.device)
+            self._arrays = (self.rows,)
+        else:
+            self.rcap = int(rcap)
+            self.res_vals = torch.zeros((self.M, self.rcap),
+                                        device=self.device)
+            self.res_idx = torch.zeros((self.M, self.rcap),
+                                       dtype=torch.int32, device=self.device)
+            self._arrays = (self.res_vals, self.res_idx)
 
     def _index(self, ids):
         return torch.as_tensor(ids, device=self.device)
@@ -119,19 +134,39 @@ class ResidentStore:
     def scatter_dense(self, ids, rows):
         self.rows.index_copy_(0, self._index(ids), rows)
 
+    def gather_csr(self, ids):
+        """(len(ids), rcap) (values, indices) pages, an index on the
+        device."""
+        idx = self._index(ids)
+        return self.res_vals.index_select(0, idx), \
+            self.res_idx.index_select(0, idx)
+
+    def scatter_csr(self, ids, vals, idx):
+        rows = self._index(ids)
+        self.res_vals.index_copy_(0, rows, vals)
+        self.res_idx.index_copy_(0, rows, idx)
+
     def retire(self, ids):
         if len(ids):
-            self.rows[self._index(ids)] = 0.0
+            rows = self._index(ids)
+            for a in self._arrays:
+                a[rows] = 0
 
     def residual_row(self, i):
-        """Client ``i``'s dense (n,) residual, as a host numpy array."""
-        return self.rows[i].cpu().numpy()
+        """Client ``i``'s dense (n,) residual, as a host numpy array (a CSR
+        page decoded by scatter-add; its zero pads add nothing)."""
+        if self.layout == "dense":
+            return self.rows[i].cpu().numpy()
+        out = np.zeros(self.n, np.float32)
+        np.add.at(out, self.res_idx[i].cpu().numpy(),
+                  self.res_vals[i].cpu().numpy())
+        return out
 
     def device_window_bytes(self):
-        return int(self.rows.nbytes)
+        return int(sum(a.nbytes for a in self._arrays))
 
     def residual_store_bytes(self):
-        return int(self.rows.nbytes)
+        return self.device_window_bytes()
 
 
 class PagedClientStore:

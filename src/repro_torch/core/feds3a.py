@@ -21,9 +21,18 @@ the reconstructions and the chain for every engine and wire. With
 upload did not deliver, re-offered with the next one, and zeroed when the
 scheduler force-restarts the client.
 
+Chunked parameter axis (``chunk_size=``, ``param_layout=``,
+``layer_keep_frac=``; ``core/param_layout.py``): the flat vector splits
+into leaf-aligned chunks, and the round's upload encode, server blend and
+ring advance go one chunk at a time, each chunk with its own capacity and
+keep fraction (``feds3a.py:1361-1576``). Both engines then run the same
+stacked round body, so a chunked sequential run is the chunked batched run
+bit for bit; a layout of one chunk without overrides is the flat path.
+
 Client stores (``client_store=``): ``"resident"`` keeps the residuals as
-one dense (M, N) tensor on the device and the batched engine's padded
-client data as (M, nb*B, F) (``feds3a.py:578-605``); ``"paged"`` keeps
+one dense (M, N) tensor on the device (chunked: (M, rcap) CSR pages) and
+the stacked engines' padded client data as (M, nb*B, F)
+(``feds3a.py:578-605``); ``"paged"`` keeps
 both on the host (``core/client_store.py``; a pooled fleet dataset's P
 distinct shards only) and puts only the round's K participants on the
 device (``feds3a.py:473-519, 618-635``). A paged run is a memory layout,
@@ -65,11 +74,13 @@ from repro_torch.core.functions import (adaptive_learning_rates,
                                         staleness_fn, supervised_weight)
 from repro_torch.core.grouping import group_clients
 from repro_torch.core.metrics import fleet_health, weighted_metrics
+from repro_torch.core.param_layout import ParamLayout
 from repro_torch.core.scheduler import SemiAsyncScheduler, paper_latency
 from repro_torch.core.sparse_comm import (CSR_FORMATS, SparseComm,
                                           csr_page_decode, flatten_tree,
                                           unflatten_like)
-from repro_torch.models.cnn import cnn_param_count, dropout_masks, init_cnn
+from repro_torch.models.cnn import (cnn_param_count, cnn_template,
+                                    dropout_masks, init_cnn)
 from repro_torch.optimizer import adam_init
 from repro_torch.weights import params_from_numpy
 
@@ -119,9 +130,12 @@ class FedS3AConfig:
                                         # ``engine`` is unset (deprecated)
     cnn: object = None                  # CNNConfig override (None: paper §V-B)
     model: object = None                # model-zoo config (not ported yet)
-    chunk_size: int = 0
-    param_layout: object = None
-    layer_keep_frac: object = None
+    chunk_size: int = 0                 # > 0: leaf-aligned chunks of at
+                                        # most this many parameters
+    param_layout: object = None         # an explicit ParamLayout (wins
+                                        # over chunk_size)
+    layer_keep_frac: object = None      # {leaf-name pattern: keep_frac |
+                                        # (keep, residual) | dict}
     seed: int = 0
     latency_jitter: float = 0.05
     traffic: object = None              # fault profile (not ported yet)
@@ -133,10 +147,30 @@ class FedS3AConfig:
     device: str = "cuda"                # port only: where the round runs
 
 
+def _resolve_layout(cfg):
+    """``chunk_size`` / ``param_layout`` / ``layer_keep_frac`` resolved
+    to the run's ``ParamLayout``, or None for the flat path, which a
+    layout of one chunk without overrides is (``feds3a.py:414-433``)."""
+    layout = cfg.param_layout
+    if layout is None:
+        if cfg.layer_keep_frac and not cfg.chunk_size:
+            raise ValueError(
+                "layer_keep_frac requires chunk_size > 0 or an explicit "
+                "param_layout: per-layer sparsity is a property of the "
+                "leaf-aligned chunks")
+        if not cfg.chunk_size or cfg.model is not None:
+            return None
+        cnn = cfg.cnn if cfg.cnn is not None else CNN_CONFIG
+        layout = ParamLayout.from_template(cnn_template(cnn), cfg.chunk_size,
+                                           overrides=cfg.layer_keep_frac)
+    return None if layout.is_flat else layout
+
+
 def _check_slice(cfg):
     """Refuse invalid config values (``ValueError``, as the reference
     does), then every value this slice does not port, naming the
-    ROADMAP.md queue ("Still to port") that brings it."""
+    ROADMAP.md queue ("Still to port") that brings it. Returns the
+    resolved ``ParamLayout`` (None: the flat path)."""
     if cfg.engine not in ENGINES + (None,):
         raise ValueError(f"engine must be one of {ENGINES} or None, got "
                          f"{cfg.engine!r}")
@@ -148,6 +182,18 @@ def _check_slice(cfg):
             "client_store='paged' requires base_store='versioned': the "
             "paged layout keeps no per-client base state; a client's base "
             "is its ring version, already on the host")
+    layout = _resolve_layout(cfg)
+    if layout is not None:
+        if not (cfg.sparse_comm and cfg.wire_format in CSR_FORMATS):
+            raise ValueError(
+                "chunked layouts require a CSR-family wire format with "
+                "sparse_comm enabled: the chunked round streams compacted "
+                "per-chunk payloads")
+        if cfg.base_store != "versioned":
+            raise ValueError(
+                "chunked layouts require base_store='versioned': chunk "
+                "bases are gathered from the reconstruction ring one chunk "
+                "at a time")
     later = {
         "engine": (cfg.engine == "sharded", "4 (sharded engine)"),
         "model": (cfg.model is not None,
@@ -156,8 +202,6 @@ def _check_slice(cfg):
                        "4 (legacy dense base store)"),
         "traffic": (cfg.traffic is not None or cfg.round_deadline is not None,
                     "4 (faults)"),
-        "chunk_size": (bool(cfg.chunk_size) or cfg.param_layout is not None
-                       or cfg.layer_keep_frac is not None, "4 (chunking)"),
         "checkpoint_dir": (cfg.checkpoint_dir is not None,
                            "4 (fleet checkpoints)"),
     }
@@ -166,6 +210,7 @@ def _check_slice(cfg):
             raise NotImplementedError(
                 f"FedS3AConfig.{name} is outside the ported slice; it comes "
                 f"with ROADMAP.md 'Still to port' queue {queue}")
+    return layout
 
 
 def _resolve_device(name):
@@ -236,7 +281,8 @@ class FedS3ATrainer:
         (before the server warm-up) in place of a draw from the seed; the
         tests pass the reference's own initial weights."""
         self.cfg = config or FedS3AConfig()
-        _check_slice(self.cfg)
+        self.layout = _check_slice(self.cfg)
+        self.chunked = self.layout is not None
         self.device = _resolve_device(self.cfg.device)
         # the reference is float32 throughout: no TF32 in products or convs
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -248,6 +294,9 @@ class FedS3ATrainer:
         self.engine = select_engine(self.cfg.engine, self.device,
                                     cnn_param_count(self.cnn),
                                     self.cfg.batched)
+        # the stacked round body: the batched engine's, and the chunked
+        # round's on both engines (same seeds, masks and arithmetic)
+        self.stacked = self.engine == "batched" or self.chunked
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(self.cfg.seed)
         # per-round seeds: participants in arrival order, then the server
@@ -261,7 +310,7 @@ class FedS3ATrainer:
             self.cnn, batch_size=B, l1=cfg.l1)
         self.predict = pseudo_label.predict_fn(self.cnn)
         self.histogram = pseudo_label.class_histogram(self.cnn)
-        if self.engine == "batched":
+        if self.stacked:
             self.batched_epoch = pseudo_label.make_batched_client_epoch(
                 self.cnn, batch_size=B, threshold=cfg.threshold, l1=cfg.l1,
                 epochs=cfg.epochs)
@@ -284,7 +333,7 @@ class FedS3ATrainer:
                                wire_format=cfg.wire_format,
                                capacity=cfg.wire_capacity,
                                residual_frac=cfg.residual_frac,
-                               q_dtype=cfg.q_dtype)
+                               q_dtype=cfg.q_dtype, layout=self.layout)
         self._csr_wire = self.comm.enabled and \
             self.comm.wire_format in CSR_FORMATS
         self._quantized = self._csr_wire and self.comm.wire_format == "csr_q"
@@ -368,7 +417,7 @@ class FedS3ATrainer:
         self.global_params = params
         self._global_flat = flatten_tree(params)
         self.server_opt = opt
-        if self.engine == "batched":
+        if self.stacked:
             # the server's Adam state carries over from the warm-up, flat
             self.server_opt = {"m": flatten_tree(opt["m"])[None],
                                "v": flatten_tree(opt["v"])[None],
@@ -387,10 +436,18 @@ class FedS3ATrainer:
             # host pages and a device window of the participants' pages:
             # CSR pages on the CSR wires, dense rows on dense_masked
             layout = ("csr" if self._csr_wire else "dense") if ef else "none"
+            rcap = self.comm.residual_capacity_total() if self.chunked \
+                else self.comm.residual_capacity(n)
             self.cstore = PagedClientStore(
-                self.M, n, self.comm.residual_capacity(n), layout=layout,
-                paged_dir=cfg.paged_dir, device=self.device)
+                self.M, n, rcap, layout=layout, paged_dir=cfg.paged_dir,
+                device=self.device)
             self.cstore.adopt_versions(self.store.client_version)
+        elif ef and self.chunked:
+            # chunked: (M, rcap_total) CSR pages with global columns
+            # (``feds3a.py:579-587``)
+            self.cstore = ResidentStore(
+                self.M, n, device=self.device, layout="csr",
+                rcap=self.comm.residual_capacity_total())
         elif ef:
             # the resident store: one dense row per client on the device
             self.cstore = ResidentStore(self.M, n, device=self.device)
@@ -422,12 +479,16 @@ class FedS3ATrainer:
         ``_advance_encode_body`` and ``_chain_entry``): ``(R_{r+1}, chain
         entry)``. On csr_q the entry keeps the quantized payload and R_{r+1}
         adds its dequantized decode. Disabled: R_{r+1} is the new model
-        itself, bit for bit."""
+        itself, bit for bit. Chunked: one encode a chunk, the chain entry's
+        payloads concatenated (``chunk_advance_body``)."""
+        keys = ("qvals", "qoffs", "qcnt", "scale") if self._quantized \
+            else ("vals", "idx")
+        if self.chunked:
+            recon, chain = self.comm.chunk_advance_body()(new_flat, prev)
+            return recon, dict(zip(keys + ("stored",), chain))
         if self._csr_wire:
             payload, stored, decoded = self.comm.csr_core(new_flat[None],
                                                           prev[None])
-            keys = ("qvals", "qoffs", "qcnt", "scale") if self._quantized \
-                else ("vals", "idx")
             chain = {k: p[0] for k, p in zip(keys, payload)}
             chain["stored"] = stored[0]
             return prev + decoded[0], chain
@@ -463,6 +524,8 @@ class FedS3ATrainer:
 
     # ------------------------------------------------------------------
     def run_round(self):
+        if self.chunked:
+            return self._run_round_chunked()
         if self.engine == "batched":
             return self._run_round_batched()
         return self._run_round_sequential()
@@ -669,11 +732,131 @@ class FedS3ATrainer:
         self._gp_tree = None
         return self._round_epilogue(prev_time, ev)
 
-    # -- memory reporting (``feds3a.py:1973-2060``) -------------------
+    # -- chunked round body (``feds3a.py:1361-1576``) --------------------
+    def _chunk_upload(self, trained, slots, part_ids, xs, vs, with_hist):
+        """Encode and book the K uploads one chunk at a time
+        (``SparseComm.chunk_encode_body``), advancing the participants' EF
+        pages: (per-chunk payloads, each with its stored counts last, and
+        the histograms or None). Only one chunk's delta, decode and
+        residual are alive at a time: with the histograms, the bases are
+        read from the (K, N) uploaded stack they need, each chunk's before
+        its decode is added in; without, they are gathered from the ring
+        by slot a chunk at a time (``feds3a.py:1361-1412``)."""
+        K, n = trained.shape
+        pages = ()
+        if self._ef_layout == "csr":
+            pages = self.cstore.gather_csr(part_ids)
+        if with_hist:
+            up = self.store.ring.index_select(0, slots)
+
+            def base(s, e):
+                return up[:, s:e]
+
+            def sink(p, decoded):
+                up[:, p["s"]:p["e"]] += decoded
+        else:
+            def base(s, e):
+                return self.store.gather_cols(slots, s, e)
+
+            def sink(p, decoded):
+                pass
+        payloads, stored, _, *new_pages = self.comm.chunk_encode_body(
+            bool(pages))(trained, base, *pages, sink=sink)
+        if pages:
+            self.cstore.scatter_csr(part_ids, *new_pages[0])
+        self.comm.account_batch_csr(sum(stored), n, K)
+        hists = self.histogram_batch(up, xs, vs).cpu().numpy() \
+            if with_hist else None
+        return [pay + (st,) for pay, st in zip(payloads, stored)], hists
+
+    def _chunk_blend(self, sp_flat, slots, sent, w, fw):
+        """The server blend a chunk at a time: each chunk's payloads
+        against its ring-gathered (K, nc) bases (``blend_flat_csr`` /
+        ``_csr_q`` on the chunk), the results concatenated
+        (``feds3a.py:1414-1449``)."""
+        blend = agg.blend_flat_csr_q if self._quantized else \
+            agg.blend_flat_csr
+        out = []
+        for p, payload in zip(self.comm.chunk_plan(), sent):
+            s, e = p["s"], p["e"]
+            out.append(blend(sp_flat[s:e], self.store.gather_cols(slots, s, e),
+                             *payload, w, fw))
+        return torch.cat(out)
+
+    def _run_round_chunked(self):
+        """One round over the chunked parameter axis, for both engines
+        (``feds3a.py:1475-1576``): the stacked epoch from the participants'
+        ring bases (the sequential engine too: the same seeds, masks and
+        per-client arithmetic), then the upload encode, the server blend
+        and the ring advance one chunk at a time, the uploads booked as one
+        batch with the chunked framing."""
+        cfg = self.cfg
+        prev_time, ev, lrs = self._round_prologue()
+        r = self.global_version
+        part_ids = [run.client for run in ev.participants]
+        K = len(part_ids)
+        seeds = self._draw_seeds(K)
+
+        xs, vs = self._gather_data(part_ids)
+        trained, _ = self.batched_epoch(self.store.gather(part_ids), xs, vs,
+                                        lrs[part_ids],
+                                        self._stacked_masks(part_ids, seeds))
+        slots = self.store.slots_for(part_ids)
+        sent, hists = self._chunk_upload(trained, slots, part_ids, xs, vs,
+                                         cfg.group_based and K > 1)
+        del trained
+
+        # server supervised epoch on the current global model (Eq. 6)
+        sp_flat, self.server_opt, _ = self.server_epoch_flat(
+            self._global_flat, self.server_opt, self.data["server"]["x"],
+            self.data["server"]["y"], cfg.lr, self._server_masks(seeds[-1]))
+
+        fw = supervised_weight(r, C=cfg.C, M=self.M,
+                               mode=cfg.supervised_weight_mode)
+        w = agg.combine_weights(
+            [len(self.data["clients"][i]["x"]) for i in part_ids],
+            [ev.stale[i] for i in part_ids], self.g_fn,
+            None if hists is None else self._groups(hists))
+        self.global_version += 1
+        new_flat = self._chunk_blend(sp_flat, slots, sent, w, fw)
+        del sent
+        recon, chain = self._advance_encode(new_flat, self.store.latest())
+        self._advance_versioned(recon, chain, ev, part_ids)
+        self._global_flat = new_flat
+        self._gp_tree = None
+        return self._round_epilogue(prev_time, ev)
+
+    # -- memory reporting (``feds3a.py:1578-1595, 1951-2060``) ---------
+    def peak_delta_device_bytes(self):
+        """The reference's analytic peak device bytes of one round's delta
+        pipeline for the k = ceil(C * M) expected participants: delta and
+        decode (k, width) f32 (two more with EF: the residual's expansion
+        and spill) and the (k, cap) f32 + int32 payload, at width N on the
+        flat path and max_chunk under a layout (O(k * chunk), flat in N).
+        The eager port holds more at its peak: the uploaded (k, N) stack
+        the histograms read and every chunk's payload until the blend
+        (measured on the card by ``chip_smoke.py`` phase 5d)."""
+        k = max(int(np.ceil(self.cfg.C * self.M)), 1)
+        n = self._global_flat.shape[0]
+        if self.chunked:
+            chunk = self.layout.max_chunk
+            cap = max(p["cap"] for p in self.comm.chunk_plan())
+        else:
+            chunk = n
+            cap = self.comm.payload_capacity(n) if self._csr_wire else n
+        bufs = 2 + (2 if self.cfg.error_feedback else 0)
+        return int(4 * k * chunk * bufs + 8 * k * cap)
+
+    def base_store_bytes(self):
+        """Server bytes of the per-client base state: the versioned store's
+        ring, retained chain payloads and version array
+        (``VersionedBaseStore.bytes``)."""
+        return self.store.bytes()
+
     def residual_store_bytes(self):
         """Bytes of the per-client EF residual state (0 without EF): the
-        resident (M, N) float32 tensor on the device, or the paged store's
-        nominal host pages."""
+        resident (M, N) float32 tensor (chunked: the (M, rcap) CSR pages)
+        on the device, or the paged store's nominal host pages."""
         return 0 if self.cstore is None else self.cstore.residual_store_bytes()
 
     def client_state_device_bytes(self):
@@ -685,7 +868,7 @@ class FedS3ATrainer:
             self.cstore.device_window_bytes()
         if self.paged:
             total += self._data_window_bytes
-        elif self.engine == "batched":
+        elif self.stacked:
             total += self._x_pad.nbytes + self._valid_pad.nbytes
         return int(total)
 
@@ -696,21 +879,23 @@ class FedS3ATrainer:
         if not self.paged:
             return int(self.store.client_version.nbytes)
         total = self.cstore.host_bytes()
-        if self.engine == "batched":
+        if self.stacked:
             total += int(self._x_pad_h.nbytes + self._valid_pad_h.nbytes
                          + self._data_map.nbytes)
         return total
 
     def client_state_resident_equiv_bytes(self):
         """What the resident layout puts on the device at this fleet size:
-        the batched engine's padded data stack and, under EF, the dense
-        (M, N) residual."""
+        the stacked engines' padded data stack and, under EF, the dense
+        (M, N) residual (chunked: the (M, rcap_total) CSR pages)."""
         total = 0
-        if self.engine == "batched":
+        if self.stacked:
             total += self.M * self._data_row_bytes if self.paged else \
                 int(self._x_pad.nbytes + self._valid_pad.nbytes)
         if self.cfg.error_feedback and self.comm.enabled:
-            total += self.M * self._global_flat.shape[0] * 4
+            total += self.M * (self.comm.residual_capacity_total() * 8
+                               if self.chunked else
+                               self._global_flat.shape[0] * 4)
         return total
 
     # ------------------------------------------------------------------

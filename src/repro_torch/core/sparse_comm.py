@@ -40,12 +40,19 @@ Under the paged client store a CSR-wire residual lives as a (rcap,) page
 new one, bit for bit what ``encode`` gives with the page's dense expansion
 as the residual.
 
+Chunked parameter axis (``layout=``, a ``core.param_layout.ParamLayout``):
+the CSR wires encode a full-model message one leaf-aligned chunk at a time
+(``chunk_encode_body``, ``chunk_advance_body``), each chunk at its own
+width, capacity and keep fraction, through the same kernels; a message
+then carries one row_ptr, and on csr_q one scale and one block table, a
+chunk. EF residual pages are the concatenation of the chunks' pages and
+hold global columns.
+
 ACO is payload bytes over dense bytes. Survivor counts stay on the device
 until ``aco`` / ``payload_bytes`` / ``wire_breakdown`` read them, in one
 transfer.
 
-Still to port: chunked layouts (ROADMAP queue 4, chunking) and wire
-validation (queue 4, faults).
+Still to port: wire validation (ROADMAP queue 4, faults).
 """
 from __future__ import annotations
 
@@ -169,6 +176,8 @@ class SparseComm:
     capacity. ``enabled=False`` sends every message dense.
     ``residual_frac``: the EF residual's share of N on the CSR wires.
     ``q_dtype``: the csr_q value type, ``"int8"`` or ``"fp16"``.
+    ``layout``: a ``ParamLayout`` for the chunked encode (``chunk_plan``)
+    and the per-chunk framing of full-model messages, or None.
 
     A tau-forced restart discards the client's residual with its
     trajectory (the trainer zeroes it): it was accumulated against a base
@@ -177,7 +186,7 @@ class SparseComm:
 
     def __init__(self, threshold="p0.2", *, enabled=True, wire_format="csr",
                  capacity=None, cap_factor=CAP_FACTOR,
-                 residual_frac=RESIDUAL_FRAC, q_dtype="int8"):
+                 residual_frac=RESIDUAL_FRAC, q_dtype="int8", layout=None):
         if wire_format not in WIRE_FORMATS:
             raise ValueError(f"wire_format must be one of {WIRE_FORMATS}, "
                              f"got {wire_format!r}")
@@ -185,6 +194,11 @@ class SparseComm:
             raise ValueError(f"q_dtype must be one of {Q_DTYPES}, "
                              f"got {q_dtype!r}")
         self.threshold = threshold
+        self.layout = layout            # ParamLayout | None
+        self._chunk_plan = None
+        # encode ("upload" / "chain") -> (per-chunk stored counts on the
+        # device, message rows): ``chunk_stored_share``
+        self._chunk_counts = {}
         self.enabled = enabled
         self.wire_format = wire_format
         self.capacity = capacity
@@ -211,11 +225,25 @@ class SparseComm:
     def row_overhead_bytes(self, n):
         """(scale_bytes, block_table_bytes) of one n-parameter csr_q row:
         the f32 scale (none in fp16 mode, whose scales are all ones) and
-        the int16 block-count table; zero on the other wires."""
+        the int16 block-count table; zero on the other wires. A
+        full-model message under a chunked layout carries one scale and
+        one table a chunk."""
         if self.wire_format != "csr_q":
             return 0, 0
         scale = 0 if self.q_dtype == "fp16" else 4
+        chunks = self._layout_chunks(n)
+        if chunks > 1:
+            table = sum(2 * max((nc + Q_BLOCK - 1) // Q_BLOCK, 1)
+                        for nc in self.layout.sizes)
+            return scale * chunks, table
         return scale, 2 * max((n + Q_BLOCK - 1) // Q_BLOCK, 1)
+
+    def _layout_chunks(self, n):
+        """Chunks an n-parameter message spans: the layout's for a
+        full-model message (n == layout.n), else 1."""
+        if self.layout is not None and n == self.layout.n:
+            return self.layout.num_chunks
+        return 1
 
     def _quantile_frac(self):
         if isinstance(self.threshold, str) and self.threshold.startswith("p"):
@@ -244,15 +272,14 @@ class SparseComm:
         return torch.full((delta.shape[0],), float(self.threshold),
                           dtype=torch.float32, device=delta.device)
 
-    def _encode_payload(self, delta):
-        """(K, n) deltas -> (wire payload, stored, decoded): the payload is
-        (values, indices) on csr and (qvals, offsets, block_counts,
-        scales) on csr_q; ``decoded`` is the receiver's dense decode of
-        it, dequantized on csr_q."""
+    def _encode_payload(self, delta, thresholds, cap):
+        """(K, n) deltas and (K,) thresholds -> (wire payload, stored,
+        decoded) at capacity ``cap``: the payload is (values, indices) on
+        csr and (qvals, offsets, block_counts, scales) on csr_q;
+        ``decoded`` is the receiver's dense decode of it, dequantized on
+        csr_q."""
         n = delta.shape[1]
-        cap = self.payload_capacity(n)
-        vals, idx, nnz = kops.csr_compact(delta, self._row_thresholds(delta),
-                                          cap)
+        vals, idx, nnz = kops.csr_compact(delta, thresholds, cap)
         stored = torch.clamp(nnz, max=cap)
         if self.wire_format != "csr_q":
             return (vals, idx), stored, csr_decode(vals, idx, stored, n)
@@ -277,10 +304,11 @@ class SparseComm:
         if residual_flat is not None:
             delta = delta + residual_flat
         delta = delta.contiguous()
-        payload, stored, decoded = self._encode_payload(delta)
+        n = delta.shape[1]
+        payload, stored, decoded = self._encode_payload(
+            delta, self._row_thresholds(delta), self.payload_capacity(n))
         if residual_flat is None:
             return payload, stored, decoded
-        n = delta.shape[1]
         res = (delta - decoded).contiguous()
         rcap = self.residual_capacity(n)
         rvals, ridx, rnnz = kops.csr_compact(
@@ -390,6 +418,167 @@ class SparseComm:
         self.account_batch(nnz, n, K)
         return (masked, {"nnz": nnz, "total": n, "rows": K}, *res)
 
+    # -- chunked parameter axis (core.param_layout) ------------------------
+    def chunk_plan(self):
+        """The layout's per-chunk encode plan: a list of dicts ``{s, e, nc,
+        keep, cap, rfrac, rcap, roff}``: ``keep`` the chunk's keep-fraction
+        override (None: the channel's threshold), ``cap`` its payload
+        capacity at its width, ``rfrac`` / ``rcap`` its EF residual share
+        and capacity, ``[roff, roff + rcap)`` its segment of a client's
+        concatenated residual page."""
+        if self._chunk_plan is not None:
+            return self._chunk_plan
+        if self.layout is None:
+            raise ValueError("chunk_plan() requires a layout "
+                             "(SparseComm(layout=...))")
+        default_frac = self._quantile_frac()
+        plan, roff = [], 0
+        for c, (s, e) in enumerate(self.layout.bounds):
+            nc = e - s
+            keep = self.layout.keep_frac[c]
+            frac = keep if keep is not None else default_frac
+            if self.capacity is not None:
+                cap = max(1, min(int(self.capacity), nc))
+            elif frac is None:          # absolute threshold: nnz unbounded
+                cap = nc
+            else:
+                cap = max(1, min(nc, int(math.ceil(self.cap_factor
+                                                   * frac * nc))))
+            rfrac = self.layout.residual_frac[c]
+            rfrac = rfrac if rfrac is not None else self.residual_frac
+            rcap = max(1, min(nc, int(math.ceil(rfrac * nc))))
+            plan.append({"s": s, "e": e, "nc": nc, "keep": keep, "cap": cap,
+                         "rfrac": rfrac, "rcap": rcap, "roff": roff})
+            roff += rcap
+        self._chunk_plan = plan
+        return plan
+
+    def residual_capacity_total(self):
+        """Width of a client's concatenated EF residual page under the
+        layout: the sum of the chunks' residual capacities."""
+        return sum(p["rcap"] for p in self.chunk_plan())
+
+    def _chunk_thresholds(self, delta_c, keep):
+        """(K,) per-row thresholds of one chunk: its keep-fraction override
+        when it has one, else the channel's rule, both through the per-row
+        quantile (``fused="low"``)."""
+        if keep is not None:
+            return local_quantile_thresholds(delta_c, keep)
+        return self._row_thresholds(delta_c)
+
+    def _chunk_encode_one(self, delta_c, plan_c):
+        """One chunk's encode: (K, nc) deltas -> (wire payload with
+        chunk-local columns, stored (K,), decoded (K, nc)), through the
+        same kernels as a flat message at the chunk's width."""
+        return self._encode_payload(
+            delta_c, self._chunk_thresholds(delta_c, plan_c["keep"]),
+            plan_c["cap"])
+
+    def chunk_encode_body(self, with_residual=False):
+        """The reference's ``chunk_encode_body``, the loop the trainer's
+        upload runs: ``fn(new, base, sink=None) -> (payloads, stored,
+        decoded)`` per-chunk lists with chunk-local columns, or with the
+        residual ``fn(new, base, rvals, ridx, sink=None) -> (payloads,
+        stored, decoded, (rvals', ridx'))`` for (K, rcap_total) EF pages,
+        the new ones written a chunk's segment at a time with GLOBAL
+        columns. ``base(s, e)`` gives the chunk's (K, e - s) bases (a ring
+        gather by slot: no (K, N) base copy); it is read before the
+        chunk's decode reaches ``sink``. A chunk's message is ``new -
+        base`` plus, with EF, the decode of its page segment; its residual
+        is ``message - decoded`` cut to the chunk's top ``rfrac``. With
+        ``sink``, each decode goes to ``sink(p, decoded)`` as it is made
+        and is not kept (``decoded`` comes back empty): one chunk's delta,
+        decode and residual are alive at a time."""
+        def body(new, base, *pages, sink=None):
+            if bool(pages) != bool(with_residual):
+                raise TypeError("residual pages given to the wrong body")
+            if pages:
+                rvals, ridx = pages
+                new_pages = (torch.empty_like(rvals), torch.empty_like(ridx))
+            payloads, stored, decodes = [], [], []
+            for p in self.chunk_plan():
+                s, e, nc = p["s"], p["e"], p["nc"]
+                delta = new[:, s:e] - base(s, e)
+                if pages:
+                    seg = slice(p["roff"], p["roff"] + p["rcap"])
+                    # global -> chunk-local columns; zero pads clip to 0
+                    local = torch.clamp(ridx[:, seg] - s, 0, nc - 1)
+                    delta = delta + csr_page_decode(rvals[:, seg], local, nc)
+                delta = delta.contiguous()
+                payload, st, decoded = self._chunk_encode_one(delta, p)
+                payloads.append(payload)
+                stored.append(st)
+                if pages:
+                    res = (delta - decoded).contiguous()
+                    rv, ri, _ = kops.csr_compact(
+                        res, local_quantile_thresholds(res, p["rfrac"]),
+                        p["rcap"])
+                    new_pages[0][:, seg] = rv
+                    new_pages[1][:, seg] = ri + s
+                    del res, rv, ri
+                del delta
+                if sink is None:
+                    decodes.append(decoded)
+                else:
+                    sink(p, decoded)
+                del decoded
+            self._count_chunks("upload", stored, new.shape[0])
+            if not pages:
+                return payloads, stored, decodes
+            return payloads, stored, decodes, new_pages
+        return body
+
+    def _count_chunks(self, what, stored, rows):
+        """Add one encode's per-chunk stored counts (a list of (rows,)
+        tensors) to ``what``'s running totals, on the device."""
+        got = torch.stack(stored).sum(1)
+        old = self._chunk_counts.get(what)
+        self._chunk_counts[what] = (got, rows) if old is None else \
+            (old[0] + got, old[1] + rows)
+
+    def chunk_stored_share(self):
+        """Per chunk of the layout, the share of its columns the chunked
+        encodes stored over every message so far: ``{"upload": [...],
+        "chain": [...]}`` (``chunk_encode_body`` / ``chunk_advance_body``;
+        one host transfer each)."""
+        widths = [p["nc"] for p in self.chunk_plan()]
+        return {what: [c / (rows * nc) for c, nc in
+                       zip(cnt.cpu().tolist(), widths)]
+                for what, (cnt, rows) in self._chunk_counts.items()}
+
+    def chunk_advance_body(self):
+        """The ring advance's encode of one (n,) transition ``new - prev``
+        chunk by chunk: ``fn(new, prev) -> (recon, chain)`` with ``recon``
+        the whole decoded reconstruction and ``chain`` the flat chain
+        entry's tuple: ``(vals, idx, stored)`` on csr, the chunks'
+        payloads concatenated with global columns, or ``(qvals, offsets,
+        block_counts, scales, stored)`` on csr_q with one scale a chunk
+        (what the chunked wire ships)."""
+        quantized = self.wire_format == "csr_q"
+
+        def body(new_flat, prev_flat):
+            recon, parts, stored, each = [], [], 0, []
+            for p in self.chunk_plan():
+                s, e = p["s"], p["e"]
+                delta = (new_flat[s:e] - prev_flat[s:e])[None].contiguous()
+                pay, st, dec = self._chunk_encode_one(delta, p)
+                recon.append(prev_flat[s:e] + dec[0])
+                stored = stored + st[0]
+                each.append(st)
+                if quantized:
+                    parts.append(tuple(x[0] for x in pay))
+                else:
+                    parts.append((pay[0][0], pay[1][0] + s))
+            cat = tuple(torch.cat([q[i] for q in parts]) for i in range(2))
+            if quantized:
+                chain = cat + (torch.cat([q[2] for q in parts]),
+                               torch.stack([q[3] for q in parts]), stored)
+            else:
+                chain = cat + (stored,)
+            self._count_chunks("chain", each, 1)
+            return torch.cat(recon), chain
+        return body
+
     def apply(self, base_params, sparse_delta_tree):
         return tree_add(base_params, sparse_delta_tree)
 
@@ -414,8 +603,10 @@ class SparseComm:
 
     def _book_rows(self, rows, params_per_message):
         """CSR framing of ``rows`` rows: one shared row_ptr, plus the csr_q
-        per-row scales and block-count tables."""
-        self.row_ptr_bytes += 4 * (rows + 1)
+        per-row scales and block-count tables (a row_ptr, scale and table
+        a chunk under a chunked layout)."""
+        self.row_ptr_bytes += 4 * (rows + 1) * \
+            self._layout_chunks(params_per_message)
         sb, bb = self.row_overhead_bytes(params_per_message)
         self.scales_bytes += sb * rows
         self.block_table_bytes += bb * rows
@@ -469,12 +660,15 @@ class SparseComm:
 
     def wire_breakdown(self):
         """Cumulative bytes on the wire by component (the reference's keys:
-        csr_q block-count tables count as indices)."""
+        csr_q block-count tables count as indices); ``layout`` describes
+        the chunked parameter axis the framing was booked under."""
         self._materialize()
+        layout = {"num_chunks": 1} if self.layout is None else \
+            self.layout.describe()
         return {"values_bytes": self._values_host,
                 "indices_bytes": self._indices_host + self.block_table_bytes,
                 "scales_bytes": float(self.scales_bytes),
                 "row_ptr_bytes": float(self.row_ptr_bytes),
                 "dense_payload_bytes": self._dense_payload_host,
                 "payload_bytes": self.payload_bytes,
-                "layout": {"num_chunks": 1}}
+                "layout": layout}

@@ -6,7 +6,8 @@ tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
 kernel (built on first use by ``build.py``) on the current stream, or
 raises. There is no fallback from the card to the plain version.
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
-count), so a run can show that its path went through the kernels.
+count), so a run can show that its path went through the kernels;
+``LAUNCHES_BY_SHAPE`` splits the same counts by the call's (rows, width).
 """
 from __future__ import annotations
 
@@ -30,9 +31,22 @@ FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # -> the kernel's bf16 fl
 FLASH_HEAD_DIMS = (64, 128)
 
 
+# (wrapper, rows, width) -> launches; width is the row's parameter count
+# (csr_quant: n, not cap; flash_attention: rows B * S, width Hq * hd)
+LAUNCHES_BY_SHAPE = {}
+
+
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_SHAPE.clear()
+
+
+def _counted(name, rows, width):
+    """One launch of ``name``'s kernel on a (rows, width) call."""
+    LAUNCHES[name] += 1
+    key = (name, int(rows), int(width))
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
 
 
 def _check(name, t, ndim, dtype=torch.float32):
@@ -78,7 +92,7 @@ def _masked_pseudo_ce_fwd(logits, threshold):
         _launch("masked_pseudo_ce_launch", logits.data_ptr(),
                 loss.data_ptr(), mask.data_ptr(), n, c,
                 ref.log_threshold(threshold), _stream(logits))
-        LAUNCHES["masked_pseudo_ce"] += 1
+        _counted("masked_pseudo_ce", n, c)
     return loss, mask
 
 
@@ -130,7 +144,7 @@ def masked_pseudo_ce_grad(logits, mask, g):
         _launch("masked_pseudo_ce_bwd_launch", logits.data_ptr(),
                 mask.data_ptr(), g.data_ptr(), grad.data_ptr(), n, c,
                 _stream(logits))
-        LAUNCHES["masked_pseudo_ce_bwd"] += 1
+        _counted("masked_pseudo_ce_bwd", n, c)
     return grad
 
 
@@ -186,7 +200,7 @@ def csr_compact(x, thresholds, cap):
                 words.data_ptr() + 8 * (words.numel() - 1), state[1],
                 state[2] << 34, K, N, cap, stream)
         state[1] += tiles
-        LAUNCHES["csr_compact"] += 1
+        _counted("csr_compact", K, N)
     return vals, idx, nnz
 
 
@@ -275,7 +289,7 @@ def csr_quantize(values, indices, stored, n, *, q_dtype="int8"):
                 state[1].data_ptr(), state[2], state[3] << 32, K, cap, nblk,
                 fp16, grid, stream)
         state[2] += grid
-        LAUNCHES["csr_quant"] += 1
+        _counted("csr_quant", K, n)
     return qvals, offs, counts, scales
 
 
@@ -300,7 +314,7 @@ def sparse_delta_batch(x, thresholds):
     if K and N:
         _launch("sparse_delta_launch", x.data_ptr(), thresholds.data_ptr(),
                 masked.data_ptr(), nnz.data_ptr(), K, N, nblk, _stream(x))
-        LAUNCHES["sparse_delta"] += 1
+        _counted("sparse_delta", K, N)
     return masked, nnz
 
 
@@ -340,7 +354,7 @@ def staleness_agg(deltas, weights):
     if N:
         _launch("staleness_agg_launch", deltas.data_ptr(),
                 weights.data_ptr(), out.data_ptr(), K, N, _stream(deltas))
-        LAUNCHES["staleness_agg"] += 1
+        _counted("staleness_agg", K, N)
     return out
 
 
@@ -392,5 +406,5 @@ def flash_attention(q, k, v, *, window=None, causal=True):
                 v.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, hd,
                 FLASH_DTYPES[q.dtype], int(causal), win,
                 1.0 / math.sqrt(hd), _stream(q))
-        LAUNCHES["flash_attention"] += 1
+        _counted("flash_attention", B * S, Hq * hd)
     return out

@@ -111,12 +111,41 @@ def test_default_device_is_the_card():
 @pytest.mark.parametrize("override", [
     {"engine": "sharded"},
     {"client_store": "paged", "error_feedback": True, "engine": "sharded"},
-    {"wire_format": "csr_q", "chunk_size": 64},
+    {"wire_format": "csr_q", "chunk_size": 64, "engine": "sharded"},
     {"base_store": "dense"}, {"client_store": "paged", "checkpoint_dir": "c"},
-    {"layer_keep_frac": {"conv": 0.5}}, {"round_deadline": 700.0},
-    {"chunk_size": 64}, {"checkpoint_dir": "ckpt"}, {"model": "qwen2-1.5b"}])
+    {"chunk_size": 64, "layer_keep_frac": {"conv": 0.5},
+     "checkpoint_dir": "ckpt"}, {"round_deadline": 700.0},
+    {"chunk_size": 64, "round_deadline": 700.0}, {"checkpoint_dir": "ckpt"},
+    {"model": "qwen2-1.5b"}])
 def test_outside_the_slice_raises(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FedS3ATrainer(make_dataset("basic", scale=0.0015),
                       FedS3AConfig(cnn=CNNConfig(**SMALL), device="cpu",
                                    **override))
+
+
+@pytest.mark.parametrize("override, match", [
+    ({"layer_keep_frac": {"conv": 0.5}}, "layer_keep_frac requires"),
+    ({"layer_keep_frac": {"conv": 0.5}, "engine": "sharded"},
+     "layer_keep_frac requires"),
+    ({"chunk_size": 64, "wire_format": "dense_masked"}, "CSR-family"),
+    ({"chunk_size": 64, "sparse_comm": False}, "CSR-family"),
+    ({"chunk_size": 64, "sparse_comm": False, "checkpoint_dir": "c"},
+     "CSR-family"),
+    ({"chunk_size": 64, "base_store": "dense"}, "base_store='versioned'")])
+def test_chunking_config_errors(override, match):
+    """The reference's chunking ``ValueError``s, each raised before any
+    refusal of a value outside the slice."""
+    with pytest.raises(ValueError, match=match):
+        FedS3ATrainer(make_dataset("basic", scale=0.0015),
+                      FedS3AConfig(cnn=CNNConfig(**SMALL), device="cpu",
+                                   **override))
+
+
+def test_flat_chunking_needs_no_csr_wire():
+    """A chunk size of N or more is the flat path, on any wire."""
+    tr = FedS3ATrainer(make_dataset("basic", scale=0.0015),
+                       FedS3AConfig(cnn=CNNConfig(**SMALL), device="cpu",
+                                    chunk_size=10**7,
+                                    wire_format="dense_masked"))
+    assert tr.layout is None and not tr.chunked
