@@ -28,7 +28,10 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    bit for bit at every chunk width of the slice layout (``CHUNK``: the
    paper CNN in 9 leaf-aligned chunks, conv and out kept at 0.5) at K = 6
    and K = 1, and all nine chunks' calls of a round back to back on one
-   stream, and time one call of each at three chunk widths;
+   stream, and time one call of each at three chunk widths; then hold
+   ``csr_compact``, ``csr_quant``, ``sparse_delta`` and ``staleness_agg``
+   bit for bit at every K a degraded round gives them (2-5), at (K, N)
+   and every chunk width, each K's calls back to back;
 4. run the port's sequential engine twice on the card and once on the CPU
    from the same initial weights (full-width paper CNN, dropout 0,
    2 rounds) and compare schedules, parameters, metrics and ACO; then
@@ -80,6 +83,22 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    with the same participants; (iii) M = 1,000 at full width chunked,
    resident then paged, bit for bit, whose upload-encode stage's own
    peak device memory must be below the flat resident run's;
+5f. faults and fleet checkpoints: six runs at full width, 7 rounds each
+   under ``REFERENCE_CHURN`` with 5% corrupt uploads, a 700 s deadline
+   and a quorum floor of 2 (batched and sequential csr, batched csr_q +
+   EF resident, paged and chunked, batched dense_masked + EF), each with
+   the launch counters reset just before it and every count held to its
+   table at that run's own K a round; every trace (participants,
+   stalenesses, crashes, lost, quarantined, departed, rejoined, resynced,
+   quorum, times) equal to the first run's and to its CPU twin's (a
+   subprocess, ``--fault-traces``, the same configs at a reduced CNN);
+   paged == resident and chunked sequential == batched bit for bit;
+   batched against sequential within the stacked-engine tolerance; three
+   runs saved at round 3, restored onto fresh trainers and finished, bit
+   for bit (parameters, ring, versions, detached mask, residual pages,
+   trace, ACO, fleet), with checkpoint bytes and save, exposure and
+   restore seconds printed; one run with ``checkpoint_every=5`` through
+   ``train()``; every checkpoint under a temporary directory it removes;
 6. serve qwen2-1.5b at full width (random weights, bf16): 8 requests
    of 512-2048 tokens, bucket 2048, 32 new tokens, through
    ``serve_batch`` with the flash kernel, the counters showing exactly
@@ -88,7 +107,7 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    2-layer float32 model of the same width on the card against the CPU;
 7. print one ``{"kernels": [...], "paths": ..., "serve": ...,
    "baselines": ..., "baselines_card_vs_cpu": ..., "chunked_card_vs_cpu":
-   ..., "fleet": ...}`` line, then the result line
+   ..., "fleet": ..., "faults": ...}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
@@ -795,6 +814,53 @@ def check_chunk_widths(torch, ops, ref, comm_mod, port, dev, gen, flushes):
     return timed
 
 
+# the participant counts a faulted round can have besides the 6 and 1 held
+# above: a degraded quorum, down to the floor (phase 5f)
+FAULT_KS = (2, 3, 4, 5)
+
+
+def check_every_k(torch, ops, ref, comm_mod, port, dev, gen):
+    """The four FL compaction kernels bit for bit at every K a faulted
+    round gives them beyond 6 and 1: at (K, N) the upload (``csr_compact``
+    at cap, ``csr_quant`` int8 and fp16, ``staleness_agg``), the EF
+    residual (``csr_compact`` at rcap) and ``sparse_delta`` (its top-20%
+    form and explicit thresholds), and at every chunk width of the slice
+    layout the chunked round's calls (upload, residual, chain); each K's
+    calls back to back on one stream, so the per-stream workspaces see K
+    change between calls. Returns the number of calls held."""
+    flat = {"nc": N_FULL, "cap": CAP_FULL, "rcap": RCAP_FULL, "keep": 0.2,
+            "rfrac": 0.25}
+    widths = {}
+    for p in chunk_plan(port, comm_mod):
+        widths.setdefault(p["nc"], p)
+    held = 0
+    for k in FAULT_KS:
+        inp = _chunk_inputs(torch, ref, comm_mod, gen, dev, flat, k)
+        calls = _chunk_calls(torch, ops, ref, flat, inp, "upload") + \
+            _chunk_calls(torch, ops, ref, flat, inp, "residual")
+        top = {}
+
+        def topfrac(x=inp.x):
+            m, n, top["t"] = ops.sparse_delta_topfrac(x, 0.2)
+            return m, n
+
+        calls += [(f"sparse_delta top 20% ({k}, N)", topfrac,
+                   lambda x=inp.x: ref.sparse_delta2d_ref(x, top["t"])),
+                  (f"sparse_delta ({k}, N)",
+                   lambda x=inp.x, t=inp.thr: ops.sparse_delta_batch(x, t),
+                   lambda x=inp.x, t=inp.thr: ref.sparse_delta2d_ref(x, t))]
+        for p in widths.values():
+            c = _chunk_inputs(torch, ref, comm_mod, gen, dev, p, k)
+            calls += _chunk_calls(torch, ops, ref, p, c, "upload") + \
+                _chunk_calls(torch, ops, ref, p, c, "residual") + \
+                _chunk_calls(torch, ops, ref, p, c, "chain")
+        held += _hold(torch, calls)
+        del inp, calls
+    log(f"  K = {list(FAULT_KS)} at (K, N) and the chunk widths "
+        f"{sorted(widths)}: {held} calls bit-exact")
+    return held
+
+
 def _bf16_ulps_apart(torch, a, b, atol=0.0):
     """Largest distance of ``a`` from ``b`` (bf16 tensors), less ``atol``,
     in units of one bf16 ulp at the larger magnitude of each pair."""
@@ -1145,15 +1211,17 @@ PATHS = {
     ("sequential", "csr_q", True): CSR_KERNELS + ("csr_quant",),
 }
 DEFAULT_PATH = ("batched", "csr", False)
-# launches a round that a path must show exactly: with K = 6 participants,
-# the batched round compacts the upload stack and the chain advance, and
-# with EF the residuals too, and quantizes the upload stack and the chain;
-# the sequential round does each per participant
+# launches a round that a path must show exactly, a number or a function of
+# the round's K participants: the batched round compacts the upload stack
+# and the chain advance, and with EF the residuals too, and quantizes the
+# upload stack and the chain, whatever K; the sequential round does each
+# per participant (K + 1 compactions, with EF 2K + 1)
 PER_ROUND = {
-    ("sequential", "csr", False): {"csr_compact": 7},
+    ("sequential", "csr", False): {"csr_compact": lambda k: k + 1},
     ("batched", "csr", False): {"csr_compact": 2},
     ("batched", "csr_q", True): {"csr_quant": 2, "csr_compact": 3},
-    ("sequential", "csr_q", True): {"csr_quant": 7, "csr_compact": 13},
+    ("sequential", "csr_q", True): {"csr_quant": lambda k: k + 1,
+                                    "csr_compact": lambda k: 2 * k + 1},
 }
 
 
@@ -1204,10 +1272,11 @@ def params_digest(port, tr):
     return h.hexdigest()
 
 
-def check_launches(launches, kernels, name, per_round=None, rounds=1):
+def check_launches(launches, kernels, name, per_round=None, ks=(None,)):
     """Every kernel of the path launched, none off it, the
-    ``masked_pseudo_ce`` backward once a forward, and the exact counts a
-    round of ``per_round``."""
+    ``masked_pseudo_ce`` backward once a forward, and the exact counts of
+    ``per_round`` (a number a round, or a function of the round's K) summed
+    over the run's rounds, whose participant counts ``ks`` lists."""
     for kernel, count in launches.items():
         if kernel in kernels:
             check(count > 0, f"kernel {kernel} never launched on {name}")
@@ -1218,9 +1287,10 @@ def check_launches(launches, kernels, name, per_round=None, rounds=1):
           f"{name}: {launches['masked_pseudo_ce_bwd']} backward launches "
           f"for {launches['masked_pseudo_ce']} forward ones")
     for kernel, count in (per_round or {}).items():
-        check(launches[kernel] == count * rounds,
+        want = sum(count(k) if callable(count) else count for k in ks)
+        check(launches[kernel] == want,
               f"{kernel} launched {launches[kernel]} times on {name}, "
-              f"expected {count} a round")
+              f"expected {want} over rounds of K = {list(ks)}")
 
 
 def store_seconds(tr):
@@ -1292,7 +1362,7 @@ def drive_path(torch, port, ops, engine, wire, ef, rounds=3,
     per_round = CHUNK_PER_ROUND[(wire, ef)] if tr.chunked else \
         PER_ROUND.get((engine, wire, ef))
     check_launches(launches, PATH_KERNELS[(engine, wire, ef)], name,
-                   per_round, rounds)
+                   per_round, [len(log.participants) for log in tr.logs])
     return tr, launches, {"s_per_round": s_round, "setup_s": t1 - t0,
                           "accuracy": m["accuracy"], "aco": out["aco"],
                           "client_state_device_bytes": state,
@@ -1838,7 +1908,7 @@ def baselines_full_width(torch, port, ops, rounds=3):
         fedavg = cls == "FedAvgSSL"
         kernels = BASELINE_KERNELS + (("staleness_agg",) if fedavg else ())
         check_launches(la, kernels, name,
-                       {"staleness_agg": 1} if fedavg else None, r)
+                       {"staleness_agg": 1} if fedavg else None, [None] * r)
         check(la["masked_pseudo_ce"] == b.steps,
               f"{name}: {la['masked_pseudo_ce']} masked_pseudo_ce launches "
               f"for {b.steps} client steps")
@@ -1931,7 +2001,7 @@ def drive_fleet(torch, port, ops, M, K, store, cnn, rounds, warmup=0,
     check(tr.chunked == bool(chunk), f"{name}: layout {tr.layout}")
     check_launches(launches, CSR_KERNELS, name,
                    {"csr_compact": 27, "staleness_agg": 9} if chunk else
-                   {"csr_compact": 3}, rounds)
+                   {"csr_compact": 3}, parts)
     res = {"M": M, "K": K, "store": store, "chunked": bool(chunk),
            "rounds": rounds,
            "warmup_rounds": warmup, "n_params": int(tr._global_flat.numel()),
@@ -2056,6 +2126,319 @@ def fleet(torch, port, ops):
     return {"full_width": full, "fleet_width": [small, big],
             "chunked_full_width": chunked,
             "nominal_host_page_bytes": nominal}
+
+
+# -- phase 5f: faults and fleet checkpoints --------------------------------
+# REFERENCE_CHURN with 5% corrupt uploads, a 700 s round deadline and a
+# quorum floor of 2 on phase 5's data; FAULT_ROUNDS is the fewest rounds in
+# which every class of FAULT_CLASSES fires (the last to fire is a resync,
+# in round 7; the phase prints each class's first round)
+FAULT_ROUNDS = 7
+FAULT_CLASSES = ("crashes", "lost", "corrupted", "departed", "rejoined",
+                 "resynced", "degraded")
+FAULT_KW = {"round_deadline": 700.0, "quorum_floor": 2}
+# name -> (engine, wire, error feedback, client store, chunked)
+FAULT_RUNS = {
+    "F1": ("batched", "csr", False, "resident", False),
+    "F2": ("sequential", "csr", False, "resident", False),
+    "F3": ("batched", "csr_q", True, "resident", False),
+    "F3p": ("batched", "csr_q", True, "paged", False),
+    "F4": ("batched", "csr_q", True, "resident", True),
+    "F5": ("batched", "dense_masked", True, "resident", False),
+}
+F4_TWIN = ("sequential", "csr_q", True, "resident", True)
+RESUMED = ("F3", "F3p", "F4")
+CPU_CNN = {"conv_filters": (8, 8), "hidden": 16}   # the CPU twins' CNN
+# F1 against F2, the stacked-engine tolerance. Metrics: the reference's own
+# batched engine against its sequential one under faults differs by up to
+# 3.33e-3 in its metrics after the chaos suite's 50 rounds on the reduced
+# CNN (tests/reference_spread.py --cell chaos). ACO: at full width on an H100
+# the port's two engines differ over these 7 rounds by up to 1.01e-2
+# without faults and 2.18e-3 with them, over seeds 0-4
+# (tools/engine_drift.py): their sums round differently and ties at the
+# sampled threshold fall apart round by round (ROADMAP.md section 3)
+FAULT_METRIC_TOL, FAULT_ACO_TOL = 3.4e-3, 1.5e-2
+
+
+def fault_config(port, spec, rounds=FAULT_ROUNDS, faulted=True, **kw):
+    engine, wire, ef, store, chunked = spec
+    faults = dict(traffic=dataclasses.replace(
+        port.REFERENCE_CHURN, corrupt_prob=0.05), **FAULT_KW) \
+        if faulted else {}
+    return port.FedS3AConfig(
+        rounds=rounds, engine=engine, wire_format=wire, error_feedback=ef,
+        client_store=store, **faults, **(CHUNK if chunked else {}), **kw)
+
+
+def fault_trace(tr):
+    """Everything the fault trace fixes, round by round, in JSON form."""
+    return json.loads(json.dumps([
+        [l.participants, sorted(l.stalenesses.items()), l.forced, l.lost,
+         l.corrupted, l.departed, l.rejoined, l.resynced, l.quorum,
+         l.target_k, l.degraded, l.deadline_hit, l.crashes, l.time, l.art]
+        for l in tr.logs]))
+
+
+def _fired(log, k):
+    v = getattr(log, k)
+    return v if isinstance(v, (bool, int)) else len(v)
+
+
+def fault_counts(tr):
+    """How often each event class fired over the run, and the first round
+    (from 1) in which it did."""
+    keys = FAULT_CLASSES + ("forced", "deadline_hit")
+    counts = {k: sum(_fired(l, k) for l in tr.logs) for k in keys}
+    counts["first_round"] = {k: next((i + 1 for i, l in enumerate(tr.logs)
+                                      if _fired(l, k)), None) for k in keys}
+    return counts
+
+
+def cpu_fault_traces(out_path):
+    """The CPU twins of phase 5f's runs: each run's config at the reduced
+    CNN on the CPU, with the same data and seed; writes their traces as
+    JSON. Run in a subprocess beside the card runs."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.set_num_threads(2)
+    from repro_torch.configs.feds3a_cnn import CNNConfig
+    from repro_torch.core import REFERENCE_CHURN
+    from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
+    from repro_torch.data import make_dataset
+    port = SimpleNamespace(FedS3AConfig=FedS3AConfig,
+                           REFERENCE_CHURN=REFERENCE_CHURN)
+    data = make_dataset("basic", scale=0.02)
+    out = {}
+    for name, spec in FAULT_RUNS.items():
+        t0 = time.perf_counter()
+        tr = FedS3ATrainer(data, fault_config(port, spec, device="cpu",
+                                              cnn=CNNConfig(**CPU_CNN)))
+        tr.train()
+        out[name] = {"trace": fault_trace(tr), "counts": fault_counts(tr),
+                     "seconds": time.perf_counter() - t0}
+    Path(out_path).write_text(json.dumps(out))
+
+
+def state_digests(tr):
+    """SHA-256 of each part of a trainer's end state: the flat parameters,
+    the ring, the client versions, the detached mask and the residual
+    pages (the paged store's valid pages, or the resident arrays)."""
+    def sha(*arrays):
+        h = hashlib.sha256()
+        for a in arrays:
+            a = a.detach().cpu().numpy() if hasattr(a, "detach") else a
+            h.update(str(a.dtype).encode() + str(a.shape).encode())
+            h.update(a.tobytes())
+        return h.hexdigest()
+
+    out = {"flat": sha(tr._global_flat), "ring": sha(tr.store.ring),
+           "client_version": sha(tr.store.client_version),
+           "detached": sha(tr.store.detached)}
+    if tr.cstore is not None:
+        st = tr.cstore.state_dict()
+        out["residuals"] = sha(st["ids"], *st["pages"]) if tr.paged else \
+            sha(*st["arrays"])
+    return out
+
+
+def fault_run(torch, port, ops, data, name, spec, rounds=FAULT_ROUNDS,
+              faulted=True, **kw):
+    """One faulted run at full width, the launch counters set to 0 just
+    before it and read just after; each kernel's launches are held to the
+    count its table gives for the run's own K a round."""
+    engine, wire, ef, store, chunked = spec
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = port.FedS3ATrainer(data, fault_config(port, spec, rounds, faulted,
+                                               **kw))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = tr.train()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    ks = [len(log.participants) for log in tr.logs]
+    check(tr.engine == engine and tr.chunked == chunked and
+          port.cnn_param_count(tr.cnn) == N_FULL,
+          f"{name} ran {tr.engine}, layout {tr.layout}")
+    m = out["metrics"]
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()),
+          f"{name}: metrics out of range: {m}")
+    check(0.0 < out["aco"] < 1.0, f"{name}: ACO out of range: {out['aco']}")
+    check(bool(torch.isfinite(tr._global_flat).all()),
+          f"{name}: non-finite global parameters")
+    if chunked:
+        per_round = CHUNK_PER_ROUND[(wire, ef)]
+    else:
+        per_round = dict(PER_ROUND.get((engine, wire, ef), {}))
+        if engine == "batched":
+            per_round["staleness_agg"] = 1
+        if wire == "dense_masked":
+            per_round["sparse_delta"] = 1 if engine == "sequential" else 2
+    check_launches(launches, PATH_KERNELS[(engine, wire, ef)], name,
+                   per_round, ks)
+    s_round = (t2 - t1) / rounds
+    label = path_name(engine, wire, ef, store, CHUNK if chunked else None)
+    log(f"  {name} {label}: {rounds} rounds, K a round {ks}, "
+        f"{s_round:.3f} s a round "
+        f"(set-up {t1 - t0:.3f} s), accuracy {m['accuracy']:.6f}, ACO "
+        f"{out['aco']:.6f}, fleet {out['fleet']}; launches {launches}")
+    return tr, out, {"s_per_round": s_round, "setup_s": t1 - t0,
+                     "accuracy": m["accuracy"], "metrics": m,
+                     "aco": out["aco"], "fleet": out["fleet"], "ks": ks,
+                     "launches": launches, "digest": params_digest(port, tr),
+                     "trace": fault_trace(tr), "counts": fault_counts(tr),
+                     "state": state_digests(tr), "chunk_stored_share": None}
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def resume_run(torch, port, data, name, spec, root, whole):
+    """Train half the rounds, save (in the background, then at once),
+    restore onto a fresh trainer and train the rest: the end state must be
+    the uninterrupted run's ``whole`` bit for bit. Returns the checkpoint's
+    bytes and the save / exposure / restore seconds."""
+    half = FAULT_ROUNDS // 2
+    cfg = fault_config(port, spec, checkpoint_dir=str(root))
+    tr = port.FedS3ATrainer(data, cfg)
+    tr.train(half)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.save_checkpoint(wait=False)
+    t1 = time.perf_counter()
+    tr._ckpt_drain()
+    t2 = time.perf_counter()
+    path = tr.save_checkpoint(wait=True)
+    t3 = time.perf_counter()
+    del tr
+    torch.cuda.empty_cache()
+    fresh = port.FedS3ATrainer(data, cfg)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    got = fresh.restore()
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    check(got == half, f"{name}: restored round {got}, saved {half}")
+    out = fresh.train(FAULT_ROUNDS - half)
+    res = {"ckpt_bytes": _dir_bytes(path), "save_s": t3 - t2,
+           "exposure_s": t1 - t0, "background_write_s": t2 - t0,
+           "restore_s": t5 - t4}
+    same = {"state": state_digests(fresh) == whole["state"],
+            "trace": fault_trace(fresh) == whole["trace"],
+            "aco": out["aco"] == whole["aco"],
+            "fleet": out["fleet"] == whole["fleet"],
+            "metrics": out["metrics"] == whole["metrics"]}
+    log(f"  {name} resumed at round {half}: checkpoint {res['ckpt_bytes']} "
+        f"B, save(wait=True) {res['save_s']:.3f} s, save(wait=False) "
+        f"exposure {res['exposure_s'] * 1e3:.2f} ms (its write "
+        f"{res['background_write_s']:.3f} s), restore {res['restore_s']:.3f}"
+        f" s; bit-equal to the uninterrupted run: {same}")
+    check(all(same.values()), f"{name}: the resumed run differs: {same}")
+    del fresh
+    torch.cuda.empty_cache()
+    return res
+
+
+def faults(torch, port, ops):
+    """Phase 5f. F1-F5 (``FAULT_RUNS``) at full width under faults, each
+    trace equal to its CPU twin's (a subprocess, the reduced CNN) and to
+    F1's; F3p bit-equal to F3 and F4 to its sequential twin; F1 and F2
+    within the stacked-engine tolerance; F3, F3p and F4 resumed from a
+    mid-run checkpoint bit for bit, and F3 once more with
+    ``checkpoint_every=5`` through ``train()``, equal to F3."""
+    import shutil
+    tmp = Path(tempfile.mkdtemp(prefix="fleet-ckpt-"))
+    cpu_out, cpu_log = tmp / "cpu_traces.json", tmp / "cpu_traces.log"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    with open(cpu_log, "w") as f:
+        cpu = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                "--fault-traces", str(cpu_out)], env=env,
+                               stdout=f, stderr=subprocess.STDOUT)
+    try:
+        data = port.make_dataset("basic", scale=0.02)
+        runs, keep = {}, {}
+        for name, spec in FAULT_RUNS.items():
+            tr, out, res = fault_run(torch, port, ops, data, name, spec)
+            runs[name] = res
+            del tr
+            torch.cuda.empty_cache()
+        _, _, twin = fault_run(torch, port, ops, data, "F4 sequential twin",
+                               F4_TWIN)
+        runs["F4 sequential twin"] = twin
+        counts = runs["F1"]["counts"]
+        log(f"  event classes over {FAULT_ROUNDS} rounds: {counts}")
+        check(all(counts[c] > 0 for c in FAULT_CLASSES) and
+              max(counts["first_round"][c] for c in FAULT_CLASSES) ==
+              FAULT_ROUNDS, f"an event class never fired, or all fire "
+              f"before round {FAULT_ROUNDS}: {counts}")
+        for name, res in runs.items():
+            check(res["trace"] == runs["F1"]["trace"],
+                  f"{name}: trace differs from F1's")
+        for name in ("F3p", "F4", "F5"):
+            check(len(set(runs[name]["ks"])) > 1,
+                  f"{name}: K never varied: {runs[name]['ks']}")
+        for a, b in (("F3p", "F3"), ("F4 sequential twin", "F4")):
+            same = {k: runs[a][k] == runs[b][k] for k in
+                    ("digest", "accuracy", "aco", "fleet", "metrics")}
+            log(f"  {a} against {b}: {same}")
+            check(all(same.values()), f"{a} differs from {b}: {same}")
+        for name in ("F1", "F2"):
+            _, _, runs[f"{name} fault-free"] = fault_run(
+                torch, port, ops, data, f"{name} fault-free",
+                FAULT_RUNS[name], faulted=False)
+        drift = {}
+        for tag in ("", " fault-free"):
+            a, b = runs["F1" + tag], runs["F2" + tag]
+            drift[tag] = (max(abs(a["metrics"][k] - b["metrics"][k])
+                              for k in a["metrics"]),
+                          abs(a["aco"] - b["aco"]))
+        (mdiff, adiff), (mfree, afree) = drift[""], drift[" fault-free"]
+        log(f"  F1 (batched) against F2 (sequential): max |metric diff| "
+            f"{mdiff:.3g}, |ACO diff| {adiff:.3g} (without faults "
+            f"{mfree:.3g} and {afree:.3g}); held to {FAULT_METRIC_TOL:g} "
+            f"and {FAULT_ACO_TOL:g}")
+        check(mdiff < FAULT_METRIC_TOL and adiff < FAULT_ACO_TOL,
+              f"F1 and F2 differ: metrics {mdiff}, ACO {adiff}")
+        engine_drift = {"faulted": drift[""],
+                        "fault_free": drift[" fault-free"],
+                        "tolerance": (FAULT_METRIC_TOL, FAULT_ACO_TOL)}
+        ckpt = {}
+        for name in RESUMED:
+            ckpt[name] = resume_run(torch, port, data, name, FAULT_RUNS[name],
+                                    tmp / name, runs[name])
+        root = tmp / "every5"
+        _, _, every = fault_run(torch, port, ops, data, "F3 every 5",
+                                FAULT_RUNS["F3"], checkpoint_dir=str(root),
+                                checkpoint_every=5)
+        written = [r for r, _ in port.fleet_ckpt.checkpoint_dirs(str(root))]
+        same = {k: every[k] == runs["F3"][k] for k in
+                ("digest", "accuracy", "aco", "fleet", "state")}
+        log(f"  F3 with checkpoint_every=5: checkpoints {written}, equal to "
+            f"F3: {same}")
+        check(written == [5, FAULT_ROUNDS] and all(same.values()),
+              f"F3 with checkpoint_every=5: {written}, {same}")
+        runs["F3 every 5"] = every
+        cpu.wait(timeout=600)
+        check(cpu.returncode == 0,
+              f"CPU twins failed: {cpu_log.read_text()[-2000:]}")
+        twins = json.loads(cpu_out.read_text())
+        for name, res in FAULT_RUNS.items():
+            ok = twins[name]["trace"] == runs[name]["trace"]
+            log(f"  {name} trace against its CPU twin (reduced CNN, "
+                f"{twins[name]['seconds']:.1f} s): equal {ok}")
+            check(ok, f"{name}: trace differs from its CPU twin's")
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for res in runs.values():
+        res.pop("trace", None)
+    return {"rounds": FAULT_ROUNDS, "counts": counts, "runs": runs,
+            "engine_drift": engine_drift, "checkpoints": ckpt}
 
 
 # -- phase 6: serving qwen2-1.5b at full width -----------------------------
@@ -2235,13 +2618,16 @@ def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         sys.exit("chip_smoke: src/repro_torch not found beside this script; "
                  "run it from a checkout of the repository")
+    if sys.argv[1:2] == ["--fault-traces"]:
+        return cpu_fault_traces(sys.argv[2])
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this smoke test needs "
                  "one GPU")
     from repro_torch.configs.feds3a_cnn import CNNConfig
-    from repro_torch.core import ParamLayout, baselines
+    from repro_torch.core import REFERENCE_CHURN, ParamLayout, baselines
+    from repro_torch.core import fleet_ckpt
     from repro_torch.core import sparse_comm as comm_mod
     from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
     from repro_torch.data import make_dataset, make_fleet_dataset
@@ -2264,7 +2650,8 @@ def main():
         params_to_numpy=params_to_numpy, get_config=get_config, lm=lm,
         serve_batch=serve_batch, make_prefill_step=make_prefill_step,
         make_serve_step=make_serve_step,
-        tree_from_numpy=tree_from_numpy, tree_to_numpy=tree_to_numpy)
+        tree_from_numpy=tree_from_numpy, tree_to_numpy=tree_to_numpy,
+        REFERENCE_CHURN=REFERENCE_CHURN, fleet_ckpt=fleet_ckpt)
 
     t_start = time.perf_counter()
     log("phase 1: card")
@@ -2305,6 +2692,9 @@ def main():
                                            dev, gen, flushes).items():
         next(k for k in kernels if k["name"] == name)["chunk_shapes"] = \
             shapes
+    log(f"phase 3 (every K): the FL compaction kernels at K = "
+        f"{list(FAULT_KS)}, full width and chunk widths")
+    every_k = check_every_k(torch, ops, ref, comm_mod, port, dev, gen)
     del flushes
     s_serve = max(len(p) for p in serve_prompts(
         np, get_config(SERVE_ARCH).vocab_size))
@@ -2364,6 +2754,12 @@ def main():
     log("phase 5d: the fleet (batched + csr + EF): M = 1,000 at full width "
         "paged vs resident; M = 1,000,000 at the fleet width, paged")
     fleet_res = fleet(torch, port, ops)
+    log(f"phase 5f: faults and fleet checkpoints ({FAULT_ROUNDS} faulted "
+        "rounds a run at full width, scale 0.02; REFERENCE_CHURN, 5% "
+        "corrupt, deadline 700 s, quorum floor 2)")
+    fault_res = faults(torch, port, ops)
+    for name, res in fault_res["runs"].items():
+        paths[f"faults {name}"] = res
 
     log(f"phase 6: serving {SERVE_ARCH} at full width ({SERVE_REQUESTS} "
         f"requests, bucket {SERVE_BUCKET}, max_new {SERVE_NEW})")
@@ -2389,7 +2785,8 @@ def main():
     print(json.dumps({"kernels": kernels, "paths": paths, "serve": serve,
                       "baselines": base, "baselines_card_vs_cpu":
                       base_parity, "chunked_card_vs_cpu": chunk_parity,
-                      "fleet": fleet_res, "gpu": smi}),
+                      "fleet": fleet_res, "faults": fault_res,
+                      "every_k_calls": every_k, "gpu": smi}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

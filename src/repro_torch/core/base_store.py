@@ -1,5 +1,5 @@
 """Staleness-windowed versioned base store (§IV-C2 distribution). Port of
-``repro/core/base_store.py:91-264, 352-376``.
+``repro/core/base_store.py``.
 
 The scheduler bounds every in-flight client to within ``tau`` versions of
 the global model, so at most ``tau + 2`` global versions are referenced at
@@ -14,20 +14,26 @@ once. The server keeps:
   (the ring already holds the dequantized reconstruction, so replaying
   the chain stays canonical f32), the survivor count on the dense_masked
   wire, the dense size with sparsification disabled;
-* a per-client ``base_version`` array on the host.
+* a per-client ``base_version`` array and a ``detached`` mask on the host.
 
 Distribution is a chain-delta broadcast: each retained transition goes on
 the wire once per round and a client at version ``v`` takes the suffix
 ``v+1 ..`` it needs. Chain stored-counts stay device scalars until
 ``dist_payload_bytes()`` reads them.
 
-Still to port: churn (detach, rejoin split, full-model resync) and the
-checkpoint state.
+Churn (the fault layer): a departed client is *detached*, its version
+parked but no longer holding back ring eviction; a rejoiner whose version
+is still in the window takes the chain suffix, one whose version was
+evicted takes an explicit full-model resync, ``n * 4`` bytes on the wire.
+``state_dict`` / ``load_state_dict`` carry the whole store through a fleet
+checkpoint; the ring is written in place, so a snapshot copies it.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core import fleet_ckpt
 
 
 class VersionedBaseStore:
@@ -46,6 +52,9 @@ class VersionedBaseStore:
         self.slot_version = np.full(self.depth, -1, np.int64)
         self.slot_version[0] = 0
         self.client_version = np.zeros(self.M, np.int64)
+        # offline (churned-out) clients: their parked version no longer
+        # holds back ring eviction
+        self.detached = np.zeros(self.M, bool)
         self.version = 0
         # version v -> {"stored": count[, "vals", "idx"]} (csr), or
         # {"stored", "qvals", "qoffs", "qcnt", "scale"} (csr_q)
@@ -88,10 +97,11 @@ class VersionedBaseStore:
                              f"{self.version}, got {new_version}")
         slot = self.slot(new_version)
         evicted = self.slot_version[slot]
-        if evicted >= 0 and bool((self.client_version == evicted).any()):
+        if evicted >= 0 and bool(
+                ((self.client_version == evicted) & ~self.detached).any()):
             raise RuntimeError(
                 f"ring eviction would drop version {evicted} still "
-                f"referenced by a client (window depth "
+                f"referenced by an attached client (window depth "
                 f"{self.depth}, new version {new_version})")
         self.ring[slot] = new_recon
         self._latest = new_recon
@@ -102,6 +112,41 @@ class VersionedBaseStore:
         # suffix starts at new - tau: exactly tau + 1 entries stay live
         for v in [v for v in self._chain if v < new_version - self.tau]:
             del self._chain[v]
+
+    # -- churn -------------------------------------------------------------
+    def detach(self, client_ids):
+        """Park departed clients: the version stays recorded (an in-window
+        rejoiner takes the chain suffix it missed) but stops holding back
+        ring eviction."""
+        ids = np.asarray(sorted(set(int(i) for i in client_ids)), np.int64)
+        if ids.size:
+            self.detached[ids] = True
+
+    def split_rejoined(self, client_ids, new_version):
+        """Rejoiners at the ``new_version`` boundary as ``(chain_ids,
+        resync_ids)``: a client parked at ``v`` needs transitions ``v+1 ..
+        new_version``, retained iff ``v >= new_version - tau - 1``; a
+        staler one was evicted while away and needs the whole model."""
+        chain, resync = [], []
+        for i in sorted(set(int(c) for c in client_ids)):
+            if self.client_version[i] >= new_version - self.tau - 1:
+                chain.append(i)
+            else:
+                resync.append(i)
+        return chain, resync
+
+    def resync(self, comm, client_ids):
+        """Serve rejoiners whose version left the ring the full model, a
+        dense unicast of ``n * 4`` bytes each booked on ``comm``, and
+        re-attach them at the current version."""
+        ids = np.asarray(sorted(set(int(i) for i in client_ids)), np.int64)
+        if ids.size == 0:
+            return
+        comm.account_dense_payload(float(ids.size) * self.n * 4, self.n,
+                                   int(ids.size))
+        self._dist_host += float(ids.size) * self.n * 4
+        self.client_version[ids] = self.version
+        self.detached[ids] = False
 
     def account_distribution(self, comm, targets):
         """Book this round's chain-delta broadcast onto ``comm``: the
@@ -134,6 +179,83 @@ class VersionedBaseStore:
                 self._dist_host += 4 * (len(stored) + 1) + \
                     (sb + bb) * len(stored)
         self.client_version[targets] = self.version
+        self.detached[targets] = False
+
+    # -- checkpoint / restore ----------------------------------------------
+    def state_dict(self, *, defer=False):
+        """The whole mutable state: the ring, the chain records, the
+        per-client versions and detached mask, the distribution bytes.
+        ``defer=False`` gives host numpy (the pending byte counts folded).
+        ``defer=True`` (the checkpoint writer's path) waits for nothing: the
+        ring, which ``advance`` writes in place, is copied on its device;
+        chain tensors, never written after their round, are kept by
+        reference; the stored counts and the pending byte fold are
+        ``fleet_ckpt.Lazy`` values the writer thread resolves, the same
+        fold in the same order. The live store is left as it is."""
+        if defer:
+            base, pend = float(self._dist_host), list(self._dist_pending)
+
+            def dist():
+                out = base
+                for cnt, eb in pend:
+                    out += float(cnt.to(torch.float64).item()) * eb
+                return out
+
+            dist = fleet_ckpt.Lazy(dist)
+
+            def conv(k, arr):
+                if k == "stored" and isinstance(arr, torch.Tensor):
+                    return fleet_ckpt.Lazy(lambda a=arr: a.cpu().numpy())
+                return arr
+
+            ring = self.ring.clone()
+        else:
+            dist = float(self.dist_payload_bytes())
+
+            def conv(k, arr):
+                if isinstance(arr, torch.Tensor):
+                    return arr.cpu().numpy()
+                return arr
+
+            ring = self.ring.cpu().numpy()
+        chain = [[int(v), {k: conv(k, a) for k, a in self._chain[v].items()}]
+                 for v in sorted(self._chain)]
+        return {"n": self.n, "M": self.M, "tau": self.tau, "ring": ring,
+                "slot_version": self.slot_version.copy(),
+                "client_version": self.client_version.copy(),
+                "detached": self.detached.copy(),
+                "version": int(self.version), "chain": chain,
+                "dist_host": dist}
+
+    def load_state_dict(self, d):
+        """Restore ``state_dict`` output onto a store of the same geometry
+        (n, M and tau are checked); tensors go to the ring's device with
+        their saved dtypes, and the newest reconstruction is read back from
+        its ring slot (``advance`` writes it there bit for bit)."""
+        for k in ("n", "M", "tau"):
+            if int(d[k]) != getattr(self, k):
+                raise ValueError(f"base-store state has {k}={d[k]}, this "
+                                 f"store has {k}={getattr(self, k)}")
+        dev = self.ring.device
+
+        def tensor(a):
+            if isinstance(a, np.ndarray):
+                return torch.from_numpy(a).to(dev)
+            return a
+
+        self.ring = torch.from_numpy(np.asarray(d["ring"], np.float32)
+                                     .reshape(self.depth, self.n)).to(dev)
+        self.slot_version = np.asarray(d["slot_version"],
+                                       np.int64).reshape(self.depth).copy()
+        self.client_version = np.asarray(d["client_version"],
+                                         np.int64).reshape(self.M).copy()
+        self.detached = np.asarray(d["detached"], bool).reshape(self.M).copy()
+        self.version = int(d["version"])
+        self._latest = self.ring[self.slot(self.version)].clone()
+        self._chain = {int(v): {k: tensor(a) for k, a in entry.items()}
+                       for v, entry in d["chain"]}
+        self._dist_pending = []
+        self._dist_host = float(d["dist_host"])
 
     # -- reporting ---------------------------------------------------------
     def dist_payload_bytes(self):
@@ -151,7 +273,8 @@ class VersionedBaseStore:
         """Server memory held by the store: the ring (O(tau * N)), the
         retained chain payloads (O(tau * cap)) and the per-client arrays
         (O(M))."""
-        total = self.ring.numel() * 4 + self.client_version.nbytes
+        total = self.ring.numel() * 4 + self.client_version.nbytes + \
+            self.detached.nbytes
         for p in self._chain.values():
             for k, arr in p.items():
                 if k == "stored":

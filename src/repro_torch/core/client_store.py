@@ -36,6 +36,10 @@ Copies change no bit.
 one dense (M, n) residual tensor on the device, or under the chunked
 parameter axis (M, rcap) CSR pages, written at once.
 
+Both stores take part in fleet checkpoints (``state_dict`` /
+``load_state_dict``): the paged one with its valid pages and counters, the
+resident one with its residual arrays.
+
 Per-client versions stay with ``VersionedBaseStore`` (host numpy there);
 :meth:`adopt_versions` only references them so that :meth:`host_bytes`
 reports the whole host-side footprint. The participation counters
@@ -151,6 +155,26 @@ class ResidentStore:
             rows = self._index(ids)
             for a in self._arrays:
                 a[rows] = 0
+
+    def state_dict(self, *, defer=False):
+        """The residual arrays, for a fleet checkpoint: host numpy, or with
+        ``defer=True`` copies on the device (scatters and retirements write
+        the live arrays in place, so a snapshot taken for a background
+        writer must own its data before the next round runs)."""
+        copy = (lambda a: a.clone()) if defer else \
+            (lambda a: a.cpu().numpy())
+        return {"M": self.M, "n": self.n, "layout": self.layout,
+                "arrays": [copy(a) for a in self._arrays]}
+
+    def load_state_dict(self, d):
+        """Restore ``state_dict`` output onto a store of the same geometry
+        and layout."""
+        for k in ("M", "n", "layout"):
+            if d[k] != getattr(self, k):
+                raise ValueError(f"resident-store state has {k}={d[k]!r}, "
+                                 f"this store has {k}={getattr(self, k)!r}")
+        for dst, src in zip(self._arrays, d["arrays"], strict=True):
+            dst.copy_(torch.from_numpy(np.asarray(src)).reshape(dst.shape))
 
     def residual_row(self, i):
         """Client ``i``'s dense (n,) residual, as a host numpy array (a CSR

@@ -50,6 +50,26 @@ order, then one for the server, from a host generator seeded with
 masks at once. Both engines consume the same seeds and masks, so they can
 be compared with dropout on.
 
+Faults (``traffic=``, a ``core/traffic.py`` profile, ``round_deadline=``,
+``quorum_floor=``; ``feds3a.py:755-924``): the scheduler draws crashes,
+lost and corrupt uploads, churn and late joins from its own stream, and
+aggregates a degraded quorum at the deadline. The trainer quarantines
+corrupt uploads at the trust boundary (``SparseComm.validate_payload``),
+detaches departures from the ring window, serves rejoiners the chain
+suffix or a booked full-model resync, and retires the EF residuals of
+forced, lost, corrupted, departed and rejoined clients. Every engine and
+wire takes rounds of any K from ``quorum_floor`` to ``ceil(C * M)``.
+
+Fleet checkpoints (``checkpoint_dir=``, ``checkpoint_every=``;
+``feds3a.py:2069-2358``, protocol in ``core/fleet_ckpt.py``):
+``save_checkpoint()`` writes the whole round-boundary state (global model,
+server Adam state, every RNG stream, EF residuals, ring and chain,
+scheduler heaps, ledgers, paged pages, round logs); ``restore()`` on a
+fresh trainer of the same config resumes it bit for bit. With
+``wait=False`` (``train()``'s cadence) the snapshot copies what the next
+round writes in place (the ring, the resident residuals) on the device
+before it returns, and a writer thread does the host copies and the disk.
+
 Everything runs on ``FedS3AConfig.device``, the card by default. A model
 on the card goes through the CUDA kernels (``kernels/ops.py``); a model on
 the CPU through their plain versions. Config values outside the ported
@@ -58,6 +78,9 @@ them.
 """
 from __future__ import annotations
 
+import os
+import queue
+import threading
 import warnings
 from dataclasses import dataclass, field
 
@@ -66,7 +89,7 @@ import torch
 
 from repro_torch.configs.feds3a_cnn import CONFIG as CNN_CONFIG
 from repro_torch.core import aggregation as agg
-from repro_torch.core import pseudo_label
+from repro_torch.core import fleet_ckpt, pseudo_label
 from repro_torch.core.base_store import VersionedBaseStore
 from repro_torch.core.client_store import (PagedClientStore, ResidentStore,
                                            take_to_device)
@@ -76,7 +99,9 @@ from repro_torch.core.grouping import group_clients
 from repro_torch.core.metrics import fleet_health, weighted_metrics
 from repro_torch.core.param_layout import ParamLayout
 from repro_torch.core.scheduler import SemiAsyncScheduler, paper_latency
-from repro_torch.core.sparse_comm import (CSR_FORMATS, SparseComm,
+from repro_torch.core.sparse_comm import (CSR_FORMATS, MALFORM_KINDS,
+                                          Q_BLOCK, SparseComm,
+                                          WireIntegrityError,
                                           csr_page_decode, flatten_tree,
                                           unflatten_like)
 from repro_torch.models.cnn import (cnn_param_count, cnn_template,
@@ -138,12 +163,13 @@ class FedS3AConfig:
                                         # (keep, residual) | dict}
     seed: int = 0
     latency_jitter: float = 0.05
-    traffic: object = None              # fault profile (not ported yet)
-    round_deadline: object = None
+    traffic: object = None              # TrafficModel fault profile
+    round_deadline: object = None       # simulated seconds a round waits
     quorum_floor: int = 1               # fewest uploads a degraded round
-                                        # takes; checked, acts only with faults
-    checkpoint_dir: object = None
-    checkpoint_every: int = 0           # acts only with checkpoint_dir
+                                        # takes
+    checkpoint_dir: object = None       # fleet checkpoints under this dir
+    checkpoint_every: int = 0           # train(): a checkpoint every this
+                                        # many global rounds, and at the end
     device: str = "cuda"                # port only: where the round runs
 
 
@@ -182,6 +208,16 @@ def _check_slice(cfg):
             "client_store='paged' requires base_store='versioned': the "
             "paged layout keeps no per-client base state; a client's base "
             "is its ring version, already on the host")
+    if cfg.traffic is not None and cfg.base_store != "versioned":
+        raise ValueError(
+            "fault injection (traffic=) requires base_store='versioned': "
+            "rejoin re-basing (chain suffix vs full-model resync) is defined "
+            "against the reconstruction ring")
+    if cfg.checkpoint_dir is not None and cfg.base_store != "versioned":
+        raise ValueError(
+            "checkpoint_dir requires base_store='versioned': the checkpoint "
+            "snapshots the reconstruction ring + chain; the legacy dense "
+            "per-client base state has no serialized form")
     layout = _resolve_layout(cfg)
     if layout is not None:
         if not (cfg.sparse_comm and cfg.wire_format in CSR_FORMATS):
@@ -200,16 +236,12 @@ def _check_slice(cfg):
                   "3b (the FL language-model path)"),
         "base_store": (cfg.base_store != "versioned",
                        "4 (legacy dense base store)"),
-        "traffic": (cfg.traffic is not None or cfg.round_deadline is not None,
-                    "4 (faults)"),
-        "checkpoint_dir": (cfg.checkpoint_dir is not None,
-                           "4 (fleet checkpoints)"),
     }
-    for name, (outside, queue) in later.items():
+    for name, (outside, label) in later.items():
         if outside:
             raise NotImplementedError(
                 f"FedS3AConfig.{name} is outside the ported slice; it comes "
-                f"with ROADMAP.md 'Still to port' queue {queue}")
+                f"with ROADMAP.md 'Still to port' queue {label}")
     return layout
 
 
@@ -328,7 +360,8 @@ class FedS3ATrainer:
         self.latencies = [paper_latency(int(s * f)) for s in sizes]
         self.scheduler = SemiAsyncScheduler(
             self.latencies, C=cfg.C, tau=cfg.tau, jitter=cfg.latency_jitter,
-            seed=cfg.seed, quorum_floor=cfg.quorum_floor)
+            seed=cfg.seed, traffic=cfg.traffic, deadline=cfg.round_deadline,
+            quorum_floor=cfg.quorum_floor)
         self.comm = SparseComm(cfg.sparse_threshold, enabled=cfg.sparse_comm,
                                wire_format=cfg.wire_format,
                                capacity=cfg.wire_capacity,
@@ -340,6 +373,13 @@ class FedS3ATrainer:
         self.g_fn = staleness_fn(cfg.staleness_function)
         self.participation = np.zeros((0, self.M))
         self.logs: list[RoundLog] = []
+        # checkpoints: each round log's encoding, made once a run (logs are
+        # append-only), and the writer thread, started at the first
+        # background save (at most one write in flight)
+        self._log_pack: list[bytes] = []
+        self._ckpt_thread = None
+        self._ckpt_queue = None
+        self._ckpt_exc = None
         self._init_models(init_params)
 
     def _tensor(self, a):
@@ -425,6 +465,11 @@ class FedS3ATrainer:
         # one zeroed Adam state for every client restart (never written)
         self._zero_opt = adam_init(params)
         self.store = VersionedBaseStore(self._global_flat, self.M, cfg.tau)
+        # late joiners start offline: parked at version 0 and detached, so
+        # they never hold back ring eviction; they attach through the
+        # rejoin path at their first online boundary
+        if self.scheduler.initial_offline:
+            self.store.detach(self.scheduler.initial_offline)
         self.global_version = 0
         # EF keeps a residual per client (a disabled channel delivers
         # everything: its residual stays zero, and none is kept)
@@ -441,7 +486,8 @@ class FedS3ATrainer:
             self.cstore = PagedClientStore(
                 self.M, n, rcap, layout=layout, paged_dir=cfg.paged_dir,
                 device=self.device)
-            self.cstore.adopt_versions(self.store.client_version)
+            self.cstore.adopt_versions(self.store.client_version,
+                                       self.store.detached)
         elif ef and self.chunked:
             # chunked: (M, rcap_total) CSR pages with global columns
             # (``feds3a.py:579-587``)
@@ -498,29 +544,99 @@ class FedS3ATrainer:
         return prev + masked[0], {"stored": nnz[0]}
 
     def _distribution_plan(self, part_ids, ev):
-        """Who restarts from the new global model at this boundary: the
-        participants and the tau-forced clients (the fault layer, not yet
-        ported, adds lost and quarantined uploaders and rejoiners)."""
-        return sorted(set(part_ids) | set(ev.forced))
+        """Who restarts from the new global model at this boundary, and how
+        (``feds3a.py:755-779``): ``(targets, resync)``. ``targets`` take
+        the chain-delta broadcast: the online participants, the tau-forced
+        clients, the lost and quarantined uploaders (they listen for the
+        broadcast like any uploader) and the rejoiners still inside the
+        window; ``resync`` are rejoiners whose version left the ring, who
+        take the full model. A participant that left after uploading stays
+        aggregated but gets nothing. Fault-free this is participants |
+        forced. Fills ``ev.resynced`` for the round log."""
+        online = self.scheduler.state.online
+        chain, resync = [], []
+        if ev.rejoined:
+            chain, resync = self.store.split_rejoined(ev.rejoined,
+                                                      self.global_version)
+        targets = sorted(set(i for i in part_ids if online[i])
+                         | set(ev.forced) | set(ev.lost)
+                         | set(ev.corrupted) | set(chain))
+        ev.resynced = resync
+        return targets, resync
+
+    @staticmethod
+    def _retired_ids(ev):
+        """Clients whose EF residual is retired at this boundary
+        (``feds3a.py:781-794``): tau-forced restarts, lost and quarantined
+        uploaders and rejoiners (a fresh base, so a fresh residual), and
+        departures (their trajectory is gone). After the upload encode,
+        which a departed participant's residual legitimately fed."""
+        return sorted(set(ev.forced) | set(ev.lost) | set(ev.corrupted)
+                      | set(ev.departed) | set(ev.rejoined))
 
     def _advance_versioned(self, recon, chain, ev, part_ids):
-        """Install the new reconstruction + chain entry, book the
-        chain-delta broadcast to this round's targets, and zero the
-        residuals of the tau-forced restarts."""
-        targets = self._distribution_plan(part_ids, ev)
+        """Install the new reconstruction + chain entry, detach the
+        departures first (an offline client must not hold back the
+        window), book the chain-delta broadcast and any full-model
+        resyncs, and retire the dead residuals (``feds3a.py:796-811``)."""
+        targets, resync = self._distribution_plan(part_ids, ev)
+        if ev.departed:
+            self.store.detach(ev.departed)
         self.store.advance(recon, chain, self.global_version)
         self.store.account_distribution(self.comm, targets)
-        self._reset_forced_residuals(ev.forced)
+        if resync:
+            self.store.resync(self.comm, resync)
+        self._reset_forced_residuals(self._retired_ids(ev))
 
-    def _reset_forced_residuals(self, forced):
-        """A forced restart discards the client's EF residual with its
-        trajectory: it was accumulated against a base the client no longer
-        holds (``feds3a.py:813-848``; the fault layer, not yet ported,
-        retires lost, departed and rejoining clients' residuals too). The
-        paged store invalidates the pages, queued after this round's
-        write-back as the resident sequence orders them."""
-        if forced and self._ef_layout is not None:
-            self.cstore.retire(sorted(set(forced)))
+    def _reset_forced_residuals(self, ids):
+        """Retire the EF residuals of ``ids`` (``_retired_ids``): each was
+        accumulated against a base the client no longer holds
+        (``feds3a.py:813-848``). The resident store zeroes the rows (or
+        pages) at once; the paged store queues the invalidations after this
+        round's write-back, as the resident sequence orders them."""
+        if ids and self._ef_layout is not None:
+            self.cstore.retire(sorted(set(ids)))
+
+    def _quarantine_uploads(self, ev):
+        """Run every corrupt-fated upload through the wire-integrity check
+        at the trust boundary (``feds3a.py:850-895``). The scheduler decided
+        which runs were damaged (``ev.corrupted``); here the damage is
+        materialized, one of ``MALFORM_KINDS`` picked by a client / round
+        hash (engine-independent, replayable), and
+        ``SparseComm.validate_payload`` must reject it. Rejection is the
+        quarantine: the payload is never decoded, aggregated or booked (the
+        lost-upload path; the residual retires in ``_retired_ids``). A
+        malformed payload that passed validation would poison the
+        aggregate, so that raises. Host only; the dense wires carry no
+        payload arrays to damage, as in the reference."""
+        if not ev.corrupted or not self._csr_wire:
+            return
+        n = int(self._global_flat.shape[0])
+        cap = 4                       # any capacity: validation infers it
+        stored = np.full(1, cap, np.int64)
+        if self._quantized:
+            vdt = np.int8 if self.comm.q_dtype == "int8" else np.float16
+            blocks = np.zeros((1, (n + Q_BLOCK - 1) // Q_BLOCK), np.int64)
+            blocks[0, 0] = cap
+            nominal = {"nnz": stored, "total": n, "rows": 1,
+                       "values": np.zeros((1, cap), vdt),
+                       "indices": np.zeros((1, cap), np.int16),
+                       "blocks": blocks, "scales": np.ones(1, np.float32)}
+        else:
+            nominal = {"nnz": stored, "total": n, "rows": 1,
+                       "values": np.zeros((1, cap), np.float32),
+                       "indices": np.zeros((1, cap), np.int32)}
+        for c in ev.corrupted:
+            kind = MALFORM_KINDS[
+                (c * 2654435761 + self.global_version) % len(MALFORM_KINDS)]
+            bad = self.comm.malform_stats(nominal, kind)
+            try:
+                self.comm.validate_payload(bad)
+            except WireIntegrityError:
+                continue              # quarantined
+            raise RuntimeError(
+                f"malformed upload (client {c}, kind {kind!r}) passed "
+                f"wire-integrity validation: quarantine is broken")
 
     # ------------------------------------------------------------------
     def run_round(self):
@@ -531,9 +647,11 @@ class FedS3ATrainer:
         return self._run_round_sequential()
 
     def _round_prologue(self):
-        """Advance the scheduler one boundary: ``(prev_time, ev, lrs)``."""
+        """Advance the scheduler one boundary and quarantine its corrupt
+        uploads: ``(prev_time, ev, lrs)``."""
         prev_time = self.scheduler.state.time
         ev = self.scheduler.next_round()
+        self._quarantine_uploads(ev)
         lrs = adaptive_learning_rates(
             self.participation, base_lr=self.cfg.lr,
             round_weight=self.cfg.round_weight_function,
@@ -898,6 +1016,214 @@ class FedS3ATrainer:
                                self._global_flat.shape[0] * 4)
         return total
 
+    # -- fleet checkpoints (``feds3a.py:2069-2358``, core/fleet_ckpt.py) --
+    def _ef_kind(self):
+        """The serialized form of the EF residuals (part of the
+        fingerprint): "none", "paged" (the pages ride in the ``cstore``
+        section), or the resident store's "dense" rows / "csr" pages."""
+        if self._ef_layout is None:
+            return "none"
+        return "paged" if self.paged else self.cstore.layout
+
+    def _ef_state(self, defer):
+        kind = self._ef_kind()
+        if kind in ("dense", "csr"):
+            return {"kind": kind, **self.cstore.state_dict(defer=defer)}
+        return {"kind": kind}
+
+    def _load_ef_state(self, d):
+        kind = self._ef_kind()
+        if d["kind"] != kind:
+            raise ValueError(f"checkpoint EF state is {d['kind']!r}, this "
+                             f"trainer stores {kind!r}")
+        if kind in ("dense", "csr"):
+            self.cstore.load_state_dict(d)
+
+    def _ckpt_fingerprint(self):
+        """What a checkpoint must match to restore: the meaning of the
+        saved state depends on all of it (the chunk plan, the wire's
+        payload shapes, the engine's round body, the EF layout, the seed
+        behind every RNG stream)."""
+        cfg = self.cfg
+        chunks = [[int(p["s"]), int(p["e"])] for p in self.comm.chunk_plan()] \
+            if self.chunked else None
+        wire = self.comm.wire_format if self._csr_wire else "dense"
+        return {"format": fleet_ckpt.FORMAT_VERSION,
+                "M": int(self.M), "n": int(self._global_flat.shape[0]),
+                "engine": self.engine, "wire_fmt": wire,
+                "q_dtype": str(cfg.q_dtype), "base_store": cfg.base_store,
+                "client_store": str(cfg.client_store),
+                "error_feedback": bool(cfg.error_feedback),
+                "ef_kind": self._ef_kind(), "tau": int(cfg.tau),
+                "C": float(cfg.C), "seed": int(cfg.seed),
+                "sparse_comm": bool(cfg.sparse_comm),
+                "sparse_threshold": str(cfg.sparse_threshold),
+                "chunks": chunks}
+
+    def _ckpt_drain(self):
+        """Wait for the background write in flight, if any, and raise what
+        it failed with."""
+        if self._ckpt_queue is not None:
+            self._ckpt_queue.join()
+        if self._ckpt_exc is not None:
+            exc, self._ckpt_exc = self._ckpt_exc, None
+            raise exc
+
+    def _ckpt_submit(self, job):
+        """Hand ``job`` to the writer thread (started at the first call);
+        its exception surfaces at the next ``_ckpt_drain``."""
+        if self._ckpt_thread is None:
+            self._ckpt_queue = queue.Queue()
+
+            def loop(q=self._ckpt_queue):
+                while True:
+                    j = q.get()
+                    try:
+                        j()
+                    except BaseException as exc:
+                        # kept for the training thread, which re-raises it
+                        # at its next drain; the writer must outlive it, or
+                        # the next save would wait on a queue nobody serves
+                        self._ckpt_exc = exc
+                    finally:
+                        q.task_done()
+
+            self._ckpt_thread = threading.Thread(
+                target=loop, name="fleet-ckpt-writer", daemon=True)
+            self._ckpt_thread.start()
+        self._ckpt_queue.put(job)
+
+    def _ckpt_sections(self, defer):
+        """Every section's state, taken on the calling thread. With
+        ``defer`` the snapshot owns its data without waiting for the
+        device: what the next round writes in place (the ring, the
+        resident residuals) and the global model and server Adam state are
+        copied on the device; chain payloads and pending byte counts,
+        never written again, are kept by reference; host state is copied.
+        The writer thread then makes the host copies. Round logs are
+        encoded once each, by the writer, into a cache only it touches
+        while a write is in flight."""
+        keep = (lambda t: t.clone()) if defer else (lambda t: t)
+
+        def tree(x):
+            if isinstance(x, dict):
+                return {k: tree(v) for k, v in x.items()}
+            return keep(x)
+
+        cache, new_logs = self._log_pack, self.logs[len(self._log_pack):]
+
+        def logs_bytes():
+            for log in new_logs:
+                cache.append(fleet_ckpt.pack_element(vars(log)))
+            return fleet_ckpt.pack_array_of_packed(cache)
+
+        sections = {
+            "trainer": {
+                "round": int(self.global_version),
+                "seed_rng": self.seed_rng.bit_generator.state,
+                "gen": self.gen.get_state(),
+                "global_flat": keep(self._global_flat),
+                "server_opt": tree(self.server_opt),
+                "participation": self.participation.copy(),
+                "ef": self._ef_state(defer),
+            },
+            "scheduler": self.scheduler.state_dict(),
+            "store": self.store.state_dict(defer=defer),
+            "comm": self.comm.ledger_state(defer=defer),
+            "logs": fleet_ckpt.PrePacked(logs_bytes),
+        }
+        if self.paged:
+            sections["cstore"] = self.cstore.state_dict()
+        return sections
+
+    def save_checkpoint(self, *, wait=True):
+        """Write one crash-consistent checkpoint of the round-boundary
+        state (``core/fleet_ckpt.py``): global model, server Adam state,
+        the RNG streams (per-round seeds, the device generator, the
+        scheduler's jitter and fault streams), EF residuals, the versioned
+        store (ring, chain, versions, detached mask), paged pages,
+        scheduler heaps, comm ledgers, participation and round logs,
+        committed by a checksummed MANIFEST written last.
+
+        ``wait=False`` returns once the snapshot owns its data (device
+        copies of what the next round overwrites); a writer thread makes
+        the host copies, encodes and writes, at most one write in flight
+        (the next save or ``restore`` waits for it), and its error surfaces
+        at the next save or drain. Returns the checkpoint's directory."""
+        root = self.cfg.checkpoint_dir
+        if not root:
+            raise ValueError(
+                "save_checkpoint() needs FedS3AConfig(checkpoint_dir=...)")
+        self._ckpt_drain()
+        rnd = int(self.global_version)
+        sections = self._ckpt_sections(defer=not wait)
+        fingerprint = self._ckpt_fingerprint()
+
+        def write():
+            return fleet_ckpt.write_checkpoint(root, rnd, sections,
+                                               fingerprint)
+
+        if wait:
+            return write()
+        self._ckpt_submit(write)
+        return os.path.join(root, f"ckpt-{rnd:08d}")
+
+    def restore(self, checkpoint_dir=None):
+        """Resume from the newest restorable checkpoint (a torn one falls
+        back to the one before), on a fresh trainer built with the same
+        data and config as the writer (the fingerprint is checked);
+        ``train()`` then continues bit for bit where the checkpoint left
+        off. Returns the restored round."""
+        self._ckpt_drain()
+        root = checkpoint_dir if checkpoint_dir is not None \
+            else self.cfg.checkpoint_dir
+        if not root:
+            raise ValueError("restore() needs a checkpoint directory")
+        path, manifest = fleet_ckpt.find_restorable(root)
+        if path is None:
+            raise FileNotFoundError(
+                f"no restorable checkpoint under {root!r}")
+        if manifest.get("fingerprint") != self._ckpt_fingerprint():
+            raise ValueError(
+                "checkpoint fingerprint mismatch: the checkpoint was "
+                "written under a different configuration/layout than this "
+                "trainer's")
+        tr = fleet_ckpt.read_section(path, "trainer")
+        self.global_version = int(tr["round"])
+        self.seed_rng.bit_generator.state = tr["seed_rng"]
+        self.gen.set_state(torch.from_numpy(tr["gen"]))
+        self._global_flat = self._tensor(tr["global_flat"])
+        self._gp_tree = None
+
+        def tree(live, saved):
+            if isinstance(live, dict):
+                if set(live) != set(saved):
+                    raise ValueError("checkpoint server_opt has another "
+                                     "structure than this trainer's")
+                return {k: tree(live[k], saved[k]) for k in live}
+            return torch.from_numpy(np.asarray(saved)).to(
+                device=self.device, dtype=live.dtype).reshape(live.shape)
+
+        self.server_opt = tree(self.server_opt, tr["server_opt"])
+        self.participation = np.asarray(tr["participation"],
+                                        np.float64).reshape(-1, self.M)
+        self._load_ef_state(tr["ef"])
+        self.scheduler.load_state_dict(
+            fleet_ckpt.read_section(path, "scheduler"))
+        self.store.load_state_dict(fleet_ckpt.read_section(path, "store"))
+        self.comm.load_ledger_state(fleet_ckpt.read_section(path, "comm"))
+        if self.paged:
+            self.cstore.load_state_dict(
+                fleet_ckpt.read_section(path, "cstore"))
+            # the store's load replaced its arrays: adopt the new ones
+            self.cstore.adopt_versions(self.store.client_version,
+                                       self.store.detached)
+        self.logs, self._log_pack = [], []
+        for d in fleet_ckpt.read_section(path, "logs"):
+            self.logs.append(RoundLog(**d))
+        self._data_window_bytes = 0
+        return int(tr["round"])
+
     # ------------------------------------------------------------------
     def evaluate(self, params=None):
         params = params if params is not None else self.global_params
@@ -906,11 +1232,24 @@ class FedS3ATrainer:
         return weighted_metrics(test["y"], preds, self.cnn.num_classes)
 
     def train(self, rounds=None, *, eval_every=0):
+        """``rounds`` rounds (default ``cfg.rounds``). With a checkpoint
+        directory and ``checkpoint_every``, a background checkpoint every
+        ``checkpoint_every`` GLOBAL rounds (so train(50) and
+        train(25) + train(25) write the same ones) and one at the end
+        unless the cadence just wrote it; the writes are drained before
+        the final evaluation."""
         rounds = rounds or self.cfg.rounds
+        cfg = self.cfg
+        cadence = cfg.checkpoint_dir and cfg.checkpoint_every
         for _ in range(rounds):
             log = self.run_round()
             if eval_every and (log.round + 1) % eval_every == 0:
                 log.metrics = self.evaluate()
+            if cadence and self.global_version % cfg.checkpoint_every == 0:
+                self.save_checkpoint(wait=False)
+        if cadence and self.global_version % cfg.checkpoint_every != 0:
+            self.save_checkpoint(wait=False)
+        self._ckpt_drain()
         final = self.evaluate()
         art = float(np.mean([l.art for l in self.logs]))
         return {"metrics": final, "art": art, "aco": self.comm.aco,

@@ -13,7 +13,8 @@ their version gap exceeds tau, in which case they are forced to restart from
 the new global model (deprecated). ART (average round time) falls out of the
 simulated clock, reproducing Table VIII.
 
-Fault injection (``traffic=``, a :class:`~repro.core.traffic.TrafficModel`)
+Fault injection (``traffic=``, a
+:class:`~repro_torch.core.traffic.TrafficModel`)
 drives the unhappy paths through the same event loop: heavy-tailed run
 latencies, crash-mid-run (the run dies and the client retries from its
 persisted base — staleness emerges instead of being scripted), upload loss

@@ -52,12 +52,19 @@ ACO is payload bytes over dense bytes. Survivor counts stay on the device
 until ``aco`` / ``payload_bytes`` / ``wire_breakdown`` read them, in one
 transfer.
 
-Still to port: wire validation (ROADMAP queue 4, faults).
+Wire integrity (the fault layer): ``validate_payload`` checks an upload's
+delivery stats at the trust boundary and raises ``WireIntegrityError`` on
+any malformation; ``malform_stats`` damages a nominal payload in one of
+the ``MALFORM_KINDS`` ways, which is how the trainer materializes a
+corrupt-fated upload before quarantining it. Both run on the host, on
+numpy (a torch tensor is copied to the host first). ``ledger_state`` /
+``load_ledger_state`` carry the byte ledgers through a fleet checkpoint.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
@@ -72,6 +79,25 @@ CSR_FORMATS = ("csr", "csr_q")
 Q_DTYPES = tuple(kops.Q_DTYPES)      # csr_q value types: "int8", "fp16"
 Q_BLOCK = 512             # csr_q offsets lie in [0, Q_BLOCK); one block
                           # count per Q_BLOCK columns
+# the fault injector's malformed-payload menu: every class of corruption the
+# wire validator must catch, each raising WireIntegrityError on either CSR
+# wire (``SparseComm.malform_stats``)
+MALFORM_KINDS = ("row_ptr", "oob_index", "nan_value", "bad_scale",
+                 "arity", "truncated", "dtype")
+
+
+class WireIntegrityError(ValueError):
+    """An incoming upload failed wire validation (malformed row_ptr,
+    out-of-bounds index, non-finite value or scale, wrong arity, dtype or
+    shape, truncated buffer). The payload is quarantined: never decoded,
+    never aggregated, never booked."""
+
+
+def _np(a):
+    """A payload array as numpy (a torch tensor is copied to the host)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def tree_sub(a, b):
@@ -636,6 +662,15 @@ class SparseComm:
         self.dense_bytes += params_per_message * n_messages * 4
         self.messages += n_messages
 
+    def account_dense_payload(self, total_bytes, params_per_message,
+                              n_messages):
+        """Book ``n_messages`` plain dense messages (full-model resync
+        unicasts) of ``total_bytes`` in all, straight into the dense
+        payload component."""
+        self._dense_payload_host += float(total_bytes)
+        self.dense_bytes += params_per_message * n_messages * 4
+        self.messages += n_messages
+
     def _materialize(self):
         if self._pending_payload:
             counts = torch.stack([c.reshape(()).to(torch.float64)
@@ -672,3 +707,212 @@ class SparseComm:
                 "dense_payload_bytes": self._dense_payload_host,
                 "payload_bytes": self.payload_bytes,
                 "layout": layout}
+
+    # -- wire integrity ----------------------------------------------------
+    def csr_stats(self, payload, stored, n):
+        """Delivery stats of a CSR-family payload (the reference's
+        ``_csr_stats`` of a stack): ``values`` / ``indices`` are the f32
+        values and int32 columns on csr, the quantized values and int16
+        offsets on csr_q, which adds ``blocks`` and ``scales``."""
+        stats = {"nnz": stored, "total": int(n), "rows": int(len(stored)),
+                 "values": payload[0], "indices": payload[1]}
+        if self.wire_format == "csr_q":
+            stats["blocks"], stats["scales"] = payload[2], payload[3]
+        return stats
+
+    def validate_payload(self, stats):
+        """Check an incoming upload's delivery stats at the trust boundary,
+        before any decode or booking; raise ``WireIntegrityError`` on a
+        malformation, else return ``stats`` unchanged (the reference's
+        ``validate_payload``, check for check).
+
+        In order: the framing fields; the arity (exactly the arrays this
+        wire ships: 2 on csr, 4 on csr_q; a dense-family message has only
+        its counts, each in [0, total]); the stored-count vector (one
+        integer a row); no truncation (every array spans rows x the shared
+        capacity); integer indices and the wire's value dtype; the implied
+        row_ptr (counts in [0, capacity]); every live column inside
+        ``[0, total)`` (csr_q offsets inside their block); finite live
+        values; on csr_q, an integer block-count table that sums to the
+        stored counts, and finite scales. Host numpy, syncing by design:
+        it runs only on quarantine candidates, never in a round body."""
+        def fail(msg):
+            raise WireIntegrityError(f"malformed upload: {msg}")
+
+        if not isinstance(stats, dict):
+            fail(f"payload is {type(stats).__name__}, not a stats mapping")
+        for k in ("nnz", "total", "rows"):
+            if k not in stats:
+                fail(f"missing framing field {k!r}")
+        try:
+            rows, n = int(stats["rows"]), int(stats["total"])
+        except (TypeError, ValueError):
+            fail("non-integer rows/total framing")
+        if rows < 1 or n < 1:
+            fail(f"non-positive framing (rows={rows}, total={n})")
+
+        quantized = self.wire_format == "csr_q"
+        payload_keys = {"values", "indices"} | \
+            ({"blocks", "scales"} if quantized else set())
+        got = {k for k in ("values", "indices", "blocks", "scales")
+               if k in stats}
+        if got != payload_keys:
+            if not self.enabled or self.wire_format not in CSR_FORMATS:
+                stored = _np(stats["nnz"]).astype(np.float64).reshape(-1)
+                if not np.isfinite(stored).all() or (stored < 0).any() \
+                        or (stored > n).any():
+                    fail("dense message count outside [0, total]")
+                return stats
+            fail(f"wrong payload arity for {self.wire_format!r}: expected "
+                 f"fields {sorted(payload_keys)}, got {sorted(got)}")
+
+        vals, idx, stored = (_np(stats[k])
+                             for k in ("values", "indices", "nnz"))
+        if stored.size != rows:
+            fail(f"stored-count vector has {stored.size} entries for "
+                 f"{rows} rows")
+        if not np.issubdtype(stored.dtype, np.integer):
+            fail(f"stored counts must be integers, got {stored.dtype}")
+        stored = stored.reshape(-1).astype(np.int64)
+        if vals.size == 0 or vals.size % rows or idx.size % rows:
+            fail("truncated payload buffer: array size not divisible by "
+                 "the row count")
+        cap = vals.size // rows
+        if idx.size != rows * cap:
+            fail(f"truncated payload buffer: values span {cap} "
+                 f"columns/row, indices {idx.size // rows}")
+        vals, idx = vals.reshape(rows, cap), idx.reshape(rows, cap)
+        if not np.issubdtype(idx.dtype, np.integer):
+            fail(f"indices must be integers, got {idx.dtype}")
+        want = (np.int8 if self.q_dtype == "int8" else np.float16) \
+            if quantized else np.float32
+        if vals.dtype != np.dtype(want):
+            fail(f"values dtype {vals.dtype} != {np.dtype(want)} for wire "
+                 f"format {self.wire_format!r}")
+        if (stored < 0).any() or (stored > cap).any():
+            fail(f"row_ptr not monotone in-capacity: stored counts must "
+                 f"lie in [0, {cap}], got "
+                 f"[{int(stored.min())}, {int(stored.max())}]")
+        live = np.arange(cap)[None, :] < stored[:, None]
+        bound = Q_BLOCK if quantized else n
+        if ((idx < 0) & live).any() or ((idx >= bound) & live).any():
+            fail(f"column {'offset' if quantized else 'index'} out of "
+                 f"bounds [0, {bound})")
+        if not np.isfinite(vals[live].astype(np.float64)).all():
+            fail("non-finite payload value")
+        if quantized:
+            blocks, scales = _np(stats["blocks"]), _np(stats["scales"])
+            if not np.issubdtype(blocks.dtype, np.integer):
+                fail(f"block-count table must be integers, got "
+                     f"{blocks.dtype}")
+            nblocks = blocks.size // rows if blocks.size % rows == 0 else -1
+            if nblocks < 1:
+                fail("truncated block-count table")
+            blocks = blocks.reshape(rows, nblocks).astype(np.int64)
+            if (blocks < 0).any():
+                fail("negative block count")
+            if (blocks.sum(axis=1) != stored).any():
+                fail("block-count table inconsistent with stored counts")
+            if not np.isfinite(scales.astype(np.float64)).all():
+                fail("non-finite quantization scale")
+        return stats
+
+    def malform_stats(self, stats, kind):
+        """A copy of ``stats`` damaged in one way, ``kind`` of
+        ``MALFORM_KINDS`` (the reference's mutilations, one for one): a
+        negative count, a live column past the model (csr_q: the block)
+        edge, a NaN value (csr_q: an infinite scale), a NaN scale (csr: a
+        spurious scale field), a missing index array, a values buffer one
+        column short, float indices."""
+        if kind not in MALFORM_KINDS:
+            raise ValueError(f"kind must be one of {MALFORM_KINDS}, "
+                             f"got {kind!r}")
+        out = dict(stats)
+        quantized = self.wire_format == "csr_q"
+        rows = int(out["rows"])
+        if kind == "row_ptr":
+            stored = _np(out["nnz"]).reshape(-1).copy()
+            stored[0] = -1
+            out["nnz"] = stored
+        elif kind == "oob_index":
+            idx = _np(out["indices"]).reshape(rows, -1).copy()
+            idx[0, 0] = Q_BLOCK if quantized else int(out["total"])
+            stored = _np(out["nnz"]).reshape(-1).copy()
+            stored[0] = max(int(stored[0]), 1)   # the bad column is live
+            out["indices"], out["nnz"] = idx, stored
+        elif kind == "nan_value":
+            if quantized:
+                scales = _np(out["scales"]).astype(np.float32).reshape(-1)
+                scales[0] = np.inf
+                out["scales"] = scales
+            else:
+                vals = _np(out["values"]).astype(np.float32).reshape(rows,
+                                                                     -1)
+                vals[0, 0] = np.nan
+                stored = _np(out["nnz"]).reshape(-1).copy()
+                stored[0] = max(int(stored[0]), 1)
+                out["values"], out["nnz"] = vals, stored
+        elif kind == "bad_scale":
+            if quantized:
+                scales = _np(out["scales"]).astype(np.float32).reshape(-1)
+                scales[0] = np.nan
+                out["scales"] = scales
+            else:
+                out["scales"] = np.ones(rows, np.float32)
+        elif kind == "arity":
+            del out["indices"]
+        elif kind == "truncated":
+            vals = _np(out["values"]).reshape(rows, -1)
+            out["values"] = vals[:, :-1] if vals.shape[1] > 1 \
+                else np.zeros((rows, 0), vals.dtype)
+        elif kind == "dtype":
+            out["indices"] = _np(out["indices"]).astype(np.float32)
+        return out
+
+    # -- checkpoint / restore ----------------------------------------------
+    def ledger_state(self, *, defer=False):
+        """The cumulative byte ledgers as host numbers. The pending device
+        counts are folded first (value-neutral: the fold keeps their
+        order). ``defer=True`` (the checkpoint writer's path) does not wait
+        for the device: the fold is a ``fleet_ckpt.Lazy`` over the pending
+        entries as they stand, resolved on the writer thread with the same
+        float64 arithmetic, and the live ledger's pending list is left as
+        it is."""
+        if defer:
+            from repro_torch.core import fleet_ckpt
+            vb, ib = float(self._values_host), float(self._indices_host)
+            pend = list(self._pending_payload)
+
+            def fold(base, col):
+                out = base
+                for entry in pend:
+                    out += float(entry[0].to(torch.float64).item()) * \
+                        entry[col]
+                return out
+
+            values = fleet_ckpt.Lazy(lambda: fold(vb, 1))
+            indices = fleet_ckpt.Lazy(lambda: fold(ib, 2))
+        else:
+            self._materialize()
+            values = float(self._values_host)
+            indices = float(self._indices_host)
+        return {"values_host": values, "indices_host": indices,
+                "dense_payload_host": float(self._dense_payload_host),
+                "dense_bytes": int(self.dense_bytes),
+                "row_ptr_bytes": int(self.row_ptr_bytes),
+                "scales_bytes": int(self.scales_bytes),
+                "block_table_bytes": int(self.block_table_bytes),
+                "messages": int(self.messages)}
+
+    def load_ledger_state(self, d):
+        """Restore ``ledger_state`` output; pending entries are dropped
+        (the checkpoint is the truth)."""
+        self._pending_payload = []
+        self._values_host = float(d["values_host"])
+        self._indices_host = float(d["indices_host"])
+        self._dense_payload_host = float(d["dense_payload_host"])
+        self.dense_bytes = int(d["dense_bytes"])
+        self.row_ptr_bytes = int(d["row_ptr_bytes"])
+        self.scales_bytes = int(d["scales_bytes"])
+        self.block_table_bytes = int(d["block_table_bytes"])
+        self.messages = int(d["messages"])

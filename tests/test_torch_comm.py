@@ -159,8 +159,8 @@ def test_versioned_store_advance_and_accounting():
         np.testing.assert_array_equal(ts.client_version, js.client_version)
         np.testing.assert_array_equal(ts.gather([0, 3, 5]).numpy(),
                                       np.asarray(js.gather([0, 3, 5])))
-        # the port holds no per-client detach flags (churn is not ported)
-        assert ts.bytes() == js.bytes() - js.detached.nbytes
+        # the same ring, chain, versions and detach flags
+        assert ts.bytes() == js.bytes()
     assert ts.dist_payload_bytes() == js.dist_payload_bytes()
     assert tc.wire_breakdown() == jc.wire_breakdown()
     assert tc.aco == jc.aco

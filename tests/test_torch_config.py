@@ -87,16 +87,25 @@ def test_every_reference_field_is_a_port_field():
 
 def test_paged_dir_raises_naming_queue_4(tmp_path):
     """``paged_dir`` is ported with the paged client store: the residual
-    pages are memory-mapped under it. What still raises, naming queue 4,
-    is the fleet checkpoint a paged deployment would pair with it."""
-    tr = _port(paged_dir=str(tmp_path), client_store="paged",
-               error_feedback=True)
-    assert tr.train()["rounds"] == 1
-    assert (tmp_path / "res_vals.npy").is_file()
-    with pytest.raises(NotImplementedError,
-                       match=r"checkpoint_dir .*queue 4 \(fleet checkpoints\)"):
-        _port(paged_dir=str(tmp_path), client_store="paged",
+    pages are memory-mapped under it. The fleet checkpoint a paged
+    deployment pairs with it is ported too (it raised, naming queue 4,
+    before): a checkpoint of a memory-mapped paged run restores onto a
+    fresh trainer with its own ``paged_dir``, and the two go on equal."""
+    kw = dict(client_store="paged", error_feedback=True,
               checkpoint_dir=str(tmp_path / "ckpt"))
+    tr = _port(paged_dir=str(tmp_path / "a"), **kw)
+    assert tr.train()["rounds"] == 1
+    assert (tmp_path / "a" / "res_vals.npy").is_file()
+    tr.save_checkpoint()
+    twin = _port(paged_dir=str(tmp_path / "b"), **kw)
+    assert twin.restore() == 1
+    for i in range(tr.M):
+        np.testing.assert_array_equal(twin.cstore.residual_row(i),
+                                      tr.cstore.residual_row(i))
+    assert isinstance(twin.cstore.res_vals, np.memmap)
+    a, b = tr.train(1), twin.train(1)
+    assert a["metrics"] == b["metrics"] and a["aco"] == b["aco"]
+    assert np.array_equal(tr._global_flat.numpy(), twin._global_flat.numpy())
 
 
 def test_select_engine_maps_batched():
@@ -112,10 +121,18 @@ def test_core_exports_the_ported_classes_without_jax():
     code = textwrap.dedent("""
         import sys
         from repro_torch.core import (FedAsyncSSL, FedAvgSSL, FedS3AConfig,
-                                      FedS3ATrainer, LocalSSL,
-                                      PagedClientStore, VersionedBaseStore)
+                                      FedS3ATrainer, FleetStalledError,
+                                      LocalSSL, PagedClientStore,
+                                      REFERENCE_CHURN, TrafficModel,
+                                      VersionedBaseStore, WireIntegrityError)
         from repro_torch.core import (base_store, baselines, client_store,
-                                      feds3a)
+                                      feds3a, fleet_ckpt, scheduler,
+                                      sparse_comm, traffic)
+        assert (TrafficModel, REFERENCE_CHURN) == (traffic.TrafficModel,
+                                                   traffic.REFERENCE_CHURN)
+        assert FleetStalledError is scheduler.FleetStalledError
+        assert WireIntegrityError is sparse_comm.WireIntegrityError
+        assert fleet_ckpt.FORMAT_VERSION == 1
         assert FedS3AConfig is feds3a.FedS3AConfig
         assert FedS3ATrainer is feds3a.FedS3ATrainer
         assert VersionedBaseStore is base_store.VersionedBaseStore

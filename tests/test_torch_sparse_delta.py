@@ -218,8 +218,8 @@ def test_store_broadcast_booking_on_dense_wires(enabled):
         ts.account_distribution(tc, targets)
         np.testing.assert_array_equal(ts.ring.numpy(), np.asarray(js.ring))
         np.testing.assert_array_equal(ts.client_version, js.client_version)
-        # the port holds no per-client detach flags (churn is not ported)
-        assert ts.bytes() == js.bytes() - js.detached.nbytes
+        # the same ring, chain, versions and detach flags
+        assert ts.bytes() == js.bytes()
     assert ts.dist_payload_bytes() == js.dist_payload_bytes()
     assert tc.wire_breakdown() == jc.wire_breakdown()
     assert tc.aco == jc.aco and tc.messages == jc.messages

@@ -63,8 +63,8 @@ def test_trainer_matches_reference_sequential_engine():
     assert abs(got["aco"] - want["aco"]) < 2e-3
     assert got["fleet"] == want["fleet"] and got["rounds"] == want["rounds"]
     assert got["art"] == want["art"]
-    # the port holds no per-client detach flags (churn is not ported)
-    assert port.store.bytes() == ref.store.bytes() - ref.store.detached.nbytes
+    # the same ring, chain, versions and detach flags
+    assert port.store.bytes() == ref.store.bytes()
 
 
 def test_port_runs_without_jax_or_the_reference_package():
@@ -109,19 +109,43 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize("override", [
-    {"engine": "sharded"},
-    {"client_store": "paged", "error_feedback": True, "engine": "sharded"},
-    {"wire_format": "csr_q", "chunk_size": 64, "engine": "sharded"},
-    {"base_store": "dense"}, {"client_store": "paged", "checkpoint_dir": "c"},
-    {"chunk_size": 64, "layer_keep_frac": {"conv": 0.5},
-     "checkpoint_dir": "ckpt"}, {"round_deadline": 700.0},
-    {"chunk_size": 64, "round_deadline": 700.0}, {"checkpoint_dir": "ckpt"},
-    {"model": "qwen2-1.5b"}])
+    pytest.param({"engine": "sharded"}, id="override0"),
+    pytest.param({"client_store": "paged", "error_feedback": True,
+                  "engine": "sharded"}, id="override1"),
+    pytest.param({"wire_format": "csr_q", "chunk_size": 64,
+                  "engine": "sharded"}, id="override2"),
+    pytest.param({"base_store": "dense"}, id="override3"),
+    pytest.param({"model": "qwen2-1.5b"}, id="override9")])
 def test_outside_the_slice_raises(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FedS3ATrainer(make_dataset("basic", scale=0.0015),
                       FedS3AConfig(cnn=CNNConfig(**SMALL), device="cpu",
                                    **override))
+
+
+@pytest.mark.parametrize("override", [
+    pytest.param({"client_store": "paged", "checkpoint_dir": "c"},
+                 id="override4"),
+    pytest.param({"chunk_size": 64, "layer_keep_frac": {"conv": 0.5},
+                  "checkpoint_dir": "ckpt"}, id="override5"),
+    pytest.param({"round_deadline": 700.0}, id="override6"),
+    pytest.param({"chunk_size": 64, "round_deadline": 700.0},
+                 id="override7"),
+    pytest.param({"checkpoint_dir": "ckpt"}, id="override8")])
+def test_faults_and_checkpoints_are_in_the_slice(override, tmp_path):
+    """The fault layer's deadline and the fleet checkpoints are ported:
+    each config that raised before builds and runs a round (checkpoints
+    under ``tmp_path``)."""
+    if "checkpoint_dir" in override:
+        override = dict(override,
+                        checkpoint_dir=str(tmp_path / override[
+                            "checkpoint_dir"]))
+    tr = FedS3ATrainer(make_dataset("basic", scale=0.0015),
+                       FedS3AConfig(cnn=CNNConfig(**SMALL), device="cpu",
+                                    rounds=1, **override))
+    assert tr.train()["rounds"] == 1
+    if "checkpoint_dir" in override:
+        assert tr.save_checkpoint().startswith(str(tmp_path))
 
 
 @pytest.mark.parametrize("override, match", [
