@@ -31,7 +31,9 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    stream, and time one call of each at three chunk widths; then hold
    ``csr_compact``, ``csr_quant``, ``sparse_delta`` and ``staleness_agg``
    bit for bit at every K a degraded round gives them (2-5), at (K, N)
-   and every chunk width, each K's calls back to back;
+   and every chunk width, each K's calls back to back; and the same four
+   at (K, N) for every row count a dense-store distribution gives them (1
+   and 6-10);
 4. run the port's sequential engine twice on the card and once on the CPU
    from the same initial weights (full-width paper CNN, dropout 0,
    2 rounds) and compare schedules, parameters, metrics and ACO; then
@@ -99,6 +101,18 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    trace, ACO, fleet), with checkpoint bytes and save, exposure and
    restore seconds printed; one run with ``checkpoint_every=5`` through
    ``train()``; every checkpoint under a temporary directory it removes;
+5g. the dense base store (``base_store="dense"``, the paper's own
+   distribution) on phase 5's model and data, 3 rounds a run: G1
+   sequential + csr, G2 batched + csr, G3 batched + csr_q + EF, G4
+   sequential + dense_masked, G5 G1 at ``epochs=2``, G6 G2 at ``tau=0``
+   (four forced clients a round: T = 10 targets), each with the launch
+   counters set to 0 just before it and every count held to its exact
+   value from each round's K participants and T targets, each beside its
+   versioned twin's ACO; G0, sparse_comm off on each engine, dense against
+   versioned bit for bit (digest, ACO, metrics, versions); G1 against G2,
+   and G1's setting for 2 rounds at dropout 0 on the card against the
+   CPU; every row count the runs launched a compaction kernel at must be
+   one phase 3 held;
 6. serve qwen2-1.5b at full width (random weights, bf16): 8 requests
    of 512-2048 tokens, bucket 2048, 32 new tokens, through
    ``serve_batch`` with the flash kernel, the counters showing exactly
@@ -107,7 +121,8 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    2-layer float32 model of the same width on the card against the CPU;
 7. print one ``{"kernels": [...], "paths": ..., "serve": ...,
    "baselines": ..., "baselines_card_vs_cpu": ..., "chunked_card_vs_cpu":
-   ..., "fleet": ..., "faults": ...}`` line, then the result line
+   ..., "fleet": ..., "faults": ..., "dense_store": ...}`` line, then the
+   result line
    ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
@@ -817,27 +832,36 @@ def check_chunk_widths(torch, ops, ref, comm_mod, port, dev, gen, flushes):
 # the participant counts a faulted round can have besides the 6 and 1 held
 # above: a degraded quorum, down to the floor (phase 5f)
 FAULT_KS = (2, 3, 4, 5)
+# the dense store's distribution rows (phase 5g): one target at a time on
+# the sequential engine, and on the batched one the T targets of a round,
+# its participants and tau-forced clients, from K = 6 up to M = 10
+DIST_KS = (1, 6, 7, 8, 9, 10)
 
 
-def check_every_k(torch, ops, ref, comm_mod, port, dev, gen):
-    """The four FL compaction kernels bit for bit at every K a faulted
-    round gives them beyond 6 and 1: at (K, N) the upload (``csr_compact``
-    at cap, ``csr_quant`` int8 and fp16, ``staleness_agg``), the EF
-    residual (``csr_compact`` at rcap) and ``sparse_delta`` (its top-20%
-    form and explicit thresholds), and at every chunk width of the slice
-    layout the chunked round's calls (upload, residual, chain); each K's
-    calls back to back on one stream, so the per-stream workspaces see K
-    change between calls. Returns the number of calls held."""
+def check_every_k(torch, ops, ref, comm_mod, port, dev, gen, ks=FAULT_KS,
+                  chunks=True):
+    """The four FL compaction kernels bit for bit at every row count ``ks``
+    that a faulted round (``FAULT_KS``, beyond the 6 and 1 held above) or a
+    dense-store distribution (``DIST_KS``) gives them: at (K, N) the upload
+    (``csr_compact`` at cap, ``csr_quant`` int8 and fp16, ``staleness_agg``)
+    and ``sparse_delta`` (its top-20% form and explicit thresholds), with
+    ``chunks`` also the EF residual (``csr_compact`` at rcap) and at every
+    chunk width of the slice layout the chunked round's calls (upload,
+    residual, chain); each K's calls back to back on one stream, so the
+    per-stream workspaces see K change between calls. Returns the number
+    of calls held."""
     flat = {"nc": N_FULL, "cap": CAP_FULL, "rcap": RCAP_FULL, "keep": 0.2,
             "rfrac": 0.25}
     widths = {}
-    for p in chunk_plan(port, comm_mod):
-        widths.setdefault(p["nc"], p)
+    if chunks:
+        for p in chunk_plan(port, comm_mod):
+            widths.setdefault(p["nc"], p)
     held = 0
-    for k in FAULT_KS:
+    for k in ks:
         inp = _chunk_inputs(torch, ref, comm_mod, gen, dev, flat, k)
-        calls = _chunk_calls(torch, ops, ref, flat, inp, "upload") + \
-            _chunk_calls(torch, ops, ref, flat, inp, "residual")
+        calls = _chunk_calls(torch, ops, ref, flat, inp, "upload")
+        if chunks:
+            calls += _chunk_calls(torch, ops, ref, flat, inp, "residual")
         top = {}
 
         def topfrac(x=inp.x):
@@ -856,7 +880,7 @@ def check_every_k(torch, ops, ref, comm_mod, port, dev, gen):
                 _chunk_calls(torch, ops, ref, p, c, "chain")
         held += _hold(torch, calls)
         del inp, calls
-    log(f"  K = {list(FAULT_KS)} at (K, N) and the chunk widths "
+    log(f"  K = {list(ks)} at (K, N) and the chunk widths "
         f"{sorted(widths)}: {held} calls bit-exact")
     return held
 
@@ -2342,6 +2366,12 @@ def resume_run(torch, port, data, name, spec, root, whole):
     return res
 
 
+def _drift(a, b):
+    """(max |metric diff|, |ACO diff|) of two runs' results."""
+    return (max(abs(a["metrics"][k] - b["metrics"][k]) for k in a["metrics"]),
+            abs(a["aco"] - b["aco"]))
+
+
 def faults(torch, port, ops):
     """Phase 5f. F1-F5 (``FAULT_RUNS``) at full width under faults, each
     trace equal to its CPU twin's (a subprocess, the reduced CNN) and to
@@ -2391,10 +2421,7 @@ def faults(torch, port, ops):
                 FAULT_RUNS[name], faulted=False)
         drift = {}
         for tag in ("", " fault-free"):
-            a, b = runs["F1" + tag], runs["F2" + tag]
-            drift[tag] = (max(abs(a["metrics"][k] - b["metrics"][k])
-                              for k in a["metrics"]),
-                          abs(a["aco"] - b["aco"]))
+            drift[tag] = _drift(runs["F1" + tag], runs["F2" + tag])
         (mdiff, adiff), (mfree, afree) = drift[""], drift[" fault-free"]
         log(f"  F1 (batched) against F2 (sequential): max |metric diff| "
             f"{mdiff:.3g}, |ACO diff| {adiff:.3g} (without faults "
@@ -2439,6 +2466,182 @@ def faults(torch, port, ops):
         res.pop("trace", None)
     return {"rounds": FAULT_ROUNDS, "counts": counts, "runs": runs,
             "engine_drift": engine_drift, "checkpoints": ckpt}
+
+
+# -- phase 5g: the dense base store ---------------------------------------
+# ``base_store="dense"``, the paper's own distribution, on phase 5's model
+# and data, DENSE_ROUNDS rounds a run: name -> (engine, wire, error
+# feedback, extra config)
+DENSE_ROUNDS = 3
+DENSE_RUNS = {
+    "G1": ("sequential", "csr", False, {}),
+    "G2": ("batched", "csr", False, {}),
+    "G3": ("batched", "csr_q", True, {}),
+    "G4": ("sequential", "dense_masked", False, {}),
+    "G5": ("sequential", "csr", False, {"epochs": 2}),
+    # tau = 0 forces the four stragglers every round: T = 10 > K = 6
+    "G6": ("batched", "csr", False, {"tau": 0}),
+}
+NO_COMPACTION = ("masked_pseudo_ce", "masked_pseudo_ce_bwd", "staleness_agg")
+# G1 against G2 (dropout 0.1) and G1's setting card against CPU (2 rounds,
+# dropout 0) are held to the reference's cross-engine criteria, and card
+# against CPU also to phase 4's max |diff| <= 1e-3. Read on an H100 before
+# they were set: G1 against G2 differ by 0 in the metrics and 2.68e-4 to
+# 1.23e-3 in ACO over seeds 0-4 (tools/engine_drift.py --runs G1,G2),
+# card against CPU by 3.15e-4 in the parameters, 0 in the metrics and
+# 2.77e-4 in ACO (PERF.md section 6)
+DENSE_METRIC_TOL, DENSE_ACO_TOL, DENSE_PARAM_TOL = 1e-4, 2e-3, 1e-3
+# launches a dense-store round must show exactly, from its K participants
+# and T distribution targets: the sequential round encodes each upload and
+# each target alone, the batched round the upload stack and the (T, N)
+# target stack once each (with EF the residual stack too)
+DENSE_PER_ROUND = {
+    ("sequential", "csr", False): {"csr_compact": lambda kt: kt[0] + kt[1]},
+    ("batched", "csr", False): {"csr_compact": 2},
+    ("batched", "csr_q", True): {"csr_quant": 2, "csr_compact": 3},
+    ("sequential", "dense_masked", False): {
+        "sparse_delta": lambda kt: kt[0] + kt[1]},
+}
+
+
+def dense_run(torch, port, ops, data, name, engine, wire, ef, extra,
+              store="dense", rounds=DENSE_ROUNDS):
+    """One phase-5g run at full width, the launch counters set to 0 just
+    before it and read just after, each kernel of the path held to its
+    exact count from every round's K and T (sparse_comm off: no
+    compaction kernel at all)."""
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = port.FedS3ATrainer(data, port.FedS3AConfig(
+        rounds=rounds, engine=engine, wire_format=wire, error_feedback=ef,
+        base_store=store, **extra))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = tr.train()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    by_shape = sorted([*key, c] for key, c in ops.LAUNCHES_BY_SHAPE.items())
+    peak = torch.cuda.max_memory_allocated()
+    check(tr.engine == engine and tr.dense_store == (store == "dense") and
+          port.cnn_param_count(tr.cnn) == N_FULL,
+          f"{name} ran {tr.engine}, store {tr.cfg.base_store}")
+    m = out["metrics"]
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()),
+          f"{name}: metrics out of range: {m}")
+    off = extra.get("sparse_comm") is False
+    check(out["aco"] == 1.0 if off else 0.0 < out["aco"] < 1.0,
+          f"{name}: ACO out of range: {out['aco']}")
+    check(bool(torch.isfinite(tr._global_flat).all()),
+          f"{name}: non-finite global parameters")
+    kt = [(len(l.participants), len(set(l.participants) | set(l.forced)))
+          for l in tr.logs]
+    if off:
+        check_launches(launches, NO_COMPACTION, name)
+    else:
+        check_launches(launches, PATH_KERNELS[(engine, wire, ef)], name,
+                       DENSE_PER_ROUND.get((engine, wire, ef))
+                       if store == "dense" else None, kt)
+    s_round = (t2 - t1) / rounds
+    wire_bytes = tr.comm.payload_bytes / rounds
+    log(f"  {name} {path_name(engine, wire, ef)} {store} {extra or ''}: "
+        f"(K, T) a round {kt}, {s_round:.3f} s a round (set-up "
+        f"{t1 - t0:.3f} s), accuracy {m['accuracy']:.6f}, ACO "
+        f"{out['aco']:.6f}, {wire_bytes:.0f} payload B a round, base store "
+        f"{tr.base_store_bytes()} B, peak device memory {peak} B; launches "
+        f"by shape {by_shape}")
+    return tr, {"s_per_round": s_round, "setup_s": t1 - t0,
+                "accuracy": m["accuracy"], "metrics": m, "aco": out["aco"],
+                "payload_bytes_per_round": wire_bytes,
+                "kt": kt, "base_store_bytes": tr.base_store_bytes(),
+                "peak_device_bytes": peak, "launches": launches,
+                "launches_by_shape": by_shape,
+                "versions": tr.base_versions.tolist(),
+                "digest": params_digest(port, tr)}
+
+
+def dense_store(torch, port, ops, paths, held_rows):
+    """Phase 5g. G1-G6 (``DENSE_RUNS``) at full width with exact launches
+    from each round's K and T, each beside its versioned twin's ACO (phase
+    5's run of the same path, or one run here); G0, sparse_comm off on
+    each engine, dense against versioned bit for bit (digest, ACO,
+    metrics, versions); G1 against G2 on the card; G1's setting for 2
+    rounds at dropout 0 on the card against the CPU (phase 4's way);
+    every row count the runs launched a kernel with held in phase 3."""
+    import numpy as np
+    data = port.make_dataset("basic", scale=0.02)
+    runs = {}
+    for name, (engine, wire, ef, extra) in DENSE_RUNS.items():
+        tr, res = dense_run(torch, port, ops, data, name, engine, wire, ef,
+                            extra)
+        twin = paths.get(path_name(engine, wire, ef)) if not extra else None
+        if twin is None:
+            _, twin = dense_run(torch, port, ops, data, f"{name} versioned",
+                                engine, wire, ef, extra, store="versioned")
+        res["versioned_aco"] = twin["aco"]
+        res["versioned_accuracy"] = twin["accuracy"]
+        log(f"  {name}: ACO {res['aco']:.6f} dense against "
+            f"{twin['aco']:.6f} versioned, accuracy {res['accuracy']:.6f} "
+            f"against {twin['accuracy']:.6f}")
+        runs[name] = res
+        del tr
+        torch.cuda.empty_cache()
+    for engine in ("sequential", "batched"):
+        pair = {}
+        for store in ("dense", "versioned"):
+            _, pair[store] = dense_run(
+                torch, port, ops, data, f"G0 {engine} {store}", engine,
+                "csr", False, {"sparse_comm": False}, store=store)
+        a, b = pair["dense"], pair["versioned"]
+        same = {k: a[k] == b[k] for k in ("digest", "aco", "metrics",
+                                          "versions", "kt")}
+        log(f"  G0 {engine}, sparse_comm off: dense against versioned "
+            f"{same}")
+        check(all(same.values()), f"G0 {engine}: the dense store differs "
+              f"from the versioned one without sparsification: {same}")
+        runs[f"G0 {engine}"] = a
+        runs[f"G0 {engine} versioned"] = b
+    rows = sorted({(kern, r) for res in runs.values()
+                   for kern, r, _, _ in res["launches_by_shape"]
+                   if kern in ("csr_compact", "csr_quant", "sparse_delta")})
+    missing = [x for x in rows if x[1] not in held_rows]
+    log(f"  compaction launches by (kernel, rows): {rows}; rows held in "
+        f"phase 3: {sorted(held_rows)}")
+    check(not missing, f"phase 5g launched {missing} at rows phase 3 did not "
+          f"hold")
+    mdiff, adiff = _drift(runs["G1"], runs["G2"])
+    log(f"  G1 (sequential) against G2 (batched): max |metric diff| "
+        f"{mdiff:.3g}, |ACO diff| {adiff:.3g}; held to "
+        f"{DENSE_METRIC_TOL:g} and {DENSE_ACO_TOL:g}")
+    check(mdiff < DENSE_METRIC_TOL and adiff < DENSE_ACO_TOL,
+          f"G1 and G2 differ: metrics {mdiff}, ACO {adiff}")
+    cnn = port.CNNConfig(dropout=0.0)
+    gen = torch.Generator().manual_seed(0)
+    init = port.params_to_numpy(port.init_cnn(cnn, gen))
+    g, c = (_trainer_run(torch, port, cnn, init, dev, 2, base_store="dense")
+            for dev in ("cuda", "cpu"))
+    _same_schedules(g, c, "G1 card vs CPU")
+    worst, outside, total = _param_diff(np, g.params, c.params)
+    cmdiff, cadiff = _drift(g.out, c.out)
+    log(f"  G1 card vs CPU after 2 rounds (dropout 0): max |diff| "
+        f"{worst:.3g} ({outside} of {total} outside atol 1e-4 + rtol "
+        f"1e-3), max |metric diff| {cmdiff:.3g}, |ACO diff| {cadiff:.3g}; "
+        f"held to {DENSE_PARAM_TOL:g}, {DENSE_METRIC_TOL:g} and "
+        f"{DENSE_ACO_TOL:g}")
+    check(np.array_equal(g.tr.base_versions, c.tr.base_versions),
+          "G1 card vs CPU: base versions differ")
+    check(worst <= DENSE_PARAM_TOL and cmdiff < DENSE_METRIC_TOL and
+          cadiff < DENSE_ACO_TOL, f"G1 card vs CPU: parameters {worst}, "
+          f"metrics {cmdiff}, ACO {cadiff}")
+    return {"rounds": DENSE_ROUNDS, "runs": runs,
+            "g1_vs_g2": {"metric_diff": mdiff, "aco_diff": adiff},
+            "card_vs_cpu": {"max_diff": worst, "outside_atol_rtol": outside,
+                            "metric_diff": cmdiff, "aco_diff": cadiff,
+                            "aco": [g.out["aco"], c.out["aco"]],
+                            "accuracy": [g.out["metrics"]["accuracy"],
+                                         c.out["metrics"]["accuracy"]]}}
 
 
 # -- phase 6: serving qwen2-1.5b at full width -----------------------------
@@ -2695,6 +2898,10 @@ def main():
     log(f"phase 3 (every K): the FL compaction kernels at K = "
         f"{list(FAULT_KS)}, full width and chunk widths")
     every_k = check_every_k(torch, ops, ref, comm_mod, port, dev, gen)
+    log(f"phase 3 (distribution rows): csr_compact, csr_quant, sparse_delta "
+        f"at K = {list(DIST_KS)}, full width")
+    every_k += check_every_k(torch, ops, ref, comm_mod, port, dev, gen,
+                             ks=DIST_KS, chunks=False)
     del flushes
     s_serve = max(len(p) for p in serve_prompts(
         np, get_config(SERVE_ARCH).vocab_size))
@@ -2760,6 +2967,14 @@ def main():
     fault_res = faults(torch, port, ops)
     for name, res in fault_res["runs"].items():
         paths[f"faults {name}"] = res
+    log(f"phase 5g: the dense base store (G0-G6, full width, scale 0.02, "
+        f"{DENSE_ROUNDS} rounds a run)")
+    t0 = time.perf_counter()
+    dense_res = dense_store(torch, port, ops, paths,
+                            set(FAULT_KS) | set(DIST_KS))
+    log(f"  phase 5g took {time.perf_counter() - t0:.1f} s")
+    for name, res in dense_res["runs"].items():
+        paths[f"dense {name}"] = res
 
     log(f"phase 6: serving {SERVE_ARCH} at full width ({SERVE_REQUESTS} "
         f"requests, bucket {SERVE_BUCKET}, max_new {SERVE_NEW})")
@@ -2786,7 +3001,8 @@ def main():
                       "baselines": base, "baselines_card_vs_cpu":
                       base_parity, "chunked_card_vs_cpu": chunk_parity,
                       "fleet": fleet_res, "faults": fault_res,
-                      "every_k_calls": every_k, "gpu": smi}),
+                      "dense_store": dense_res, "every_k_calls": every_k,
+                      "gpu": smi}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,14 @@ is still in the window takes the chain suffix, one whose version was
 evicted takes an explicit full-model resync, ``n * 4`` bytes on the wire.
 ``state_dict`` / ``load_state_dict`` carry the whole store through a fleet
 checkpoint; the ring is written in place, so a snapshot copies it.
+
+``DenseBaseStore`` is the paper's own distribution state
+(``base_store="dense"``, ``feds3a.py:559-615``): one flat base row per
+client, the model it last received, and its version. Each round the
+server sends every target the sparse difference between the new global
+model and that target's row, and the row takes what the target decoded.
+With sparsification on its bytes and models differ from the versioned
+store's; with it off the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -282,3 +290,37 @@ class VersionedBaseStore:
                 else:
                     total += int(arr.numel()) * arr.element_size()
         return int(total)
+
+
+class DenseBaseStore:
+    """One flat (N,) float32 base row per client, on the model's device, as
+    an (M, N) tensor written in place, and the (M,) version each row holds
+    on the host. Every row starts as the warmed-up global model."""
+
+    def __init__(self, global_flat, M):
+        self.n = int(global_flat.shape[0])
+        self.M = int(M)
+        self.rows = global_flat.to(torch.float32).expand(self.M,
+                                                         self.n).clone()
+        self.client_version = np.zeros(self.M, np.int64)
+
+    def _index(self, client_ids):
+        return torch.as_tensor(np.asarray(client_ids, np.int64),
+                               device=self.rows.device)
+
+    def gather(self, client_ids):
+        """(K, N) base rows of ``client_ids``."""
+        return self.rows.index_select(0, self._index(client_ids))
+
+    def write(self, client_ids, new_rows, version):
+        """A distribution's write-back: row ``client_ids[t]`` becomes
+        ``new_rows[t]`` (what target t decoded) at ``version``."""
+        self.rows.index_copy_(0, self._index(client_ids),
+                              new_rows.to(torch.float32))
+        self.client_version[np.asarray(client_ids, np.int64)] = version
+
+    def bytes(self):
+        """Server memory of the per-client base state, the reference's
+        logical footprint (``feds3a.py:1952-1970``): every client's row and
+        the version array, O(M * N)."""
+        return int(self.M * self.n * 4 + self.client_version.nbytes)

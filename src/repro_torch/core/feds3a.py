@@ -15,8 +15,12 @@ learning rates and sparse-difference communication. Port of
 
 Wires: the compacted ``"csr"`` wire, the quantized ``"csr_q"`` wire
 (``q_dtype="int8"`` or ``"fp16"``), the ``"dense_masked"`` wire, and the
-disabled channel (``sparse_comm=False``); the versioned base store keeps
-the reconstructions and the chain for every engine and wire. With
+disabled channel (``sparse_comm=False``). Base stores (``base_store=``),
+for every engine and wire: ``"versioned"`` keeps the reconstructions and
+the chain, and distributes by a chain-delta broadcast; ``"dense"``, the
+paper's own scheme, keeps each client's base row and sends every target
+the sparse difference between the new global model and that row
+(``feds3a.py:559-615, 686-703, 1106-1135``). With
 ``error_feedback=True`` every client keeps a residual: what its last
 upload did not deliver, re-offered with the next one, and zeroed when the
 scheduler force-restarts the client.
@@ -39,10 +43,11 @@ device (``feds3a.py:473-519, 618-635``). A paged run is a memory layout,
 not an algorithm: it gives its resident twin's results bit for bit.
 
 A round: the scheduler admits ``ceil(C * M)`` uploads; each participant
-trains one pseudo-label epoch from its ring base and uploads its delta;
+trains one pseudo-label epoch from its base and uploads its delta;
 the server takes one supervised epoch; clients are grouped by k-means on
 their pseudo-label histograms; Eq. 9/10 aggregates; one chain-transition
-encode advances the versioned base store, and its broadcast is booked.
+encode advances the versioned base store, and its broadcast is booked
+(dense store: one encode a target against its own base row).
 
 Random draws: every round takes one seed per participant, in arrival
 order, then one for the server, from a host generator seeded with
@@ -90,7 +95,7 @@ import torch
 from repro_torch.configs.feds3a_cnn import CONFIG as CNN_CONFIG
 from repro_torch.core import aggregation as agg
 from repro_torch.core import fleet_ckpt, pseudo_label
-from repro_torch.core.base_store import VersionedBaseStore
+from repro_torch.core.base_store import DenseBaseStore, VersionedBaseStore
 from repro_torch.core.client_store import (PagedClientStore, ResidentStore,
                                            take_to_device)
 from repro_torch.core.functions import (adaptive_learning_rates,
@@ -110,6 +115,7 @@ from repro_torch.optimizer import adam_init
 from repro_torch.weights import params_from_numpy
 
 ENGINES = ("sequential", "batched", "sharded")
+BASE_STORES = ("versioned", "dense")
 CLIENT_STORES = ("resident", "paged")
 # auto engine selection on the CPU: stacked rounds win where round overhead
 # dominates, the reference's own cut (feds3a.py:458-459)
@@ -200,6 +206,9 @@ def _check_slice(cfg):
     if cfg.engine not in ENGINES + (None,):
         raise ValueError(f"engine must be one of {ENGINES} or None, got "
                          f"{cfg.engine!r}")
+    if cfg.base_store not in BASE_STORES:
+        raise ValueError(f"base_store must be one of {BASE_STORES}, got "
+                         f"{cfg.base_store!r}")
     if cfg.client_store not in CLIENT_STORES:
         raise ValueError(f"client_store must be one of {CLIENT_STORES}, "
                          f"got {cfg.client_store!r}")
@@ -234,8 +243,6 @@ def _check_slice(cfg):
         "engine": (cfg.engine == "sharded", "4 (sharded engine)"),
         "model": (cfg.model is not None,
                   "3b (the FL language-model path)"),
-        "base_store": (cfg.base_store != "versioned",
-                       "4 (legacy dense base store)"),
     }
     for name, (outside, label) in later.items():
         if outside:
@@ -464,7 +471,16 @@ class FedS3ATrainer:
                                "t": opt["t"].reshape(1)}
         # one zeroed Adam state for every client restart (never written)
         self._zero_opt = adam_init(params)
-        self.store = VersionedBaseStore(self._global_flat, self.M, cfg.tau)
+        self.dense_store = cfg.base_store == "dense"
+        if self.dense_store:
+            # each client's base row; every client starts a round from its
+            # row with a zeroed Adam state, as the reference's per-client
+            # params / opt always are then (``feds3a.py:606-615``; pinned by
+            # tests/test_torch_dense_store.py), so neither is kept
+            self.store = DenseBaseStore(self._global_flat, self.M)
+        else:
+            self.store = VersionedBaseStore(self._global_flat, self.M,
+                                            cfg.tau)
         # late joiners start offline: parked at version 0 and detached, so
         # they never hold back ring eviction; they attach through the
         # rejoin path at their first online boundary
@@ -588,6 +604,36 @@ class FedS3ATrainer:
             self.store.resync(self.comm, resync)
         self._reset_forced_residuals(self._retired_ids(ev))
 
+    def _distribute_dense(self, ev, part_ids, new_flat):
+        """The dense store's distribution (``feds3a.py:686-703, 1017-1031,
+        1336-1351``): each target of ``_distribution_plan`` gets the sparse
+        difference between the new global model and its own base row, and
+        the row becomes what the target decoded, at the new version; then
+        the forced clients' residuals retire. The sequential engine encodes
+        and books one target at a time (``SparseComm.encode``, a (1, N)
+        call of each of the wire's kernels); the batched engine encodes the
+        (T, N) stack of the targets' rows in one call
+        (``SparseComm.distribute_core``) and books it as one batch."""
+        targets, _ = self._distribution_plan(part_ids, ev)
+        v, n = self.global_version, new_flat.shape[0]
+        if self.engine == "sequential":
+            for i in targets:
+                base = unflatten_like(self.store.gather([i])[0],
+                                      self._template)
+                delta, _ = self.comm.encode(self.global_params, base)
+                row = flatten_tree(self.comm.apply(base, delta)) \
+                    if self.comm.enabled else new_flat
+                self.store.write([i], row[None], v)
+        elif targets:
+            new_base, counts = self.comm.distribute_core(
+                new_flat, self.store.gather(targets))
+            if self._csr_wire:
+                self.comm.account_batch_csr(counts, n, len(targets))
+            else:
+                self.comm.account_batch(counts, n, len(targets))
+            self.store.write(targets, new_base, v)
+        self._reset_forced_residuals(ev.forced)
+
     def _reset_forced_residuals(self, ids):
         """Retire the EF residuals of ``ids`` (``_retired_ids``): each was
         accumulated against a base the client no longer holds
@@ -689,8 +735,9 @@ class FedS3ATrainer:
 
     # -- sequential engine ---------------------------------------------
     def _train_client(self, i, lr, seed):
-        """Run client i's local epochs from its ring base; returns
-        (trained, base) parameter dicts."""
+        """Run client i's local epochs from its base (a ring lookup, or its
+        dense-store row) with a zeroed Adam state; returns (trained, base)
+        parameter dicts."""
         x = self.data["clients"][i]["x"]
         base = unflatten_like(self.store.gather([i])[0], self._template)
         masks = self._masks(seed, (self.cfg.epochs, self.num_batches[i]))
@@ -746,10 +793,14 @@ class FedS3ATrainer:
         self._global_flat = flatten_tree(self.global_params)
         self.global_version += 1
 
-        # distribution: one chain-transition encode + its broadcast
-        recon, chain = self._advance_encode(self._global_flat,
-                                            self.store.latest())
-        self._advance_versioned(recon, chain, ev, part_ids)
+        # distribution: one chain-transition encode + its broadcast, or
+        # one encode a target against its own row
+        if self.dense_store:
+            self._distribute_dense(ev, part_ids, self._global_flat)
+        else:
+            recon, chain = self._advance_encode(self._global_flat,
+                                                self.store.latest())
+            self._advance_versioned(recon, chain, ev, part_ids)
         return self._round_epilogue(prev_time, ev)
 
     # -- batched engine ------------------------------------------------
@@ -809,9 +860,10 @@ class FedS3ATrainer:
 
     def _run_round_batched(self):
         """All participants per stage: one stacked epoch, one upload
-        encode, one aggregation and one chain-transition encode
-        (``feds3a.py:1223-1356``). One host transfer per round beyond the
-        scheduler's: the histograms that feed k-means."""
+        encode, one aggregation and one chain-transition encode, or on the
+        dense store one (T, N) distribution encode (``feds3a.py:1223-1356``).
+        One host transfer per round beyond the scheduler's: the histograms
+        that feed k-means."""
         cfg = self.cfg
         prev_time, ev, lrs = self._round_prologue()
         r = self.global_version
@@ -844,8 +896,12 @@ class FedS3ATrainer:
             new_flat = agg.blend_flat_csr(sp_flat, base_flat, *sent, w, fw)
         else:
             new_flat = agg.blend_flat(sp_flat, sent, w, fw)
-        recon, chain = self._advance_encode(new_flat, self.store.latest())
-        self._advance_versioned(recon, chain, ev, part_ids)
+        if self.dense_store:
+            self._distribute_dense(ev, part_ids, new_flat)
+        else:
+            recon, chain = self._advance_encode(new_flat,
+                                                self.store.latest())
+            self._advance_versioned(recon, chain, ev, part_ids)
         self._global_flat = new_flat
         self._gp_tree = None
         return self._round_epilogue(prev_time, ev)
@@ -968,7 +1024,8 @@ class FedS3ATrainer:
     def base_store_bytes(self):
         """Server bytes of the per-client base state: the versioned store's
         ring, retained chain payloads and version array
-        (``VersionedBaseStore.bytes``)."""
+        (``VersionedBaseStore.bytes``), or the dense store's M rows and
+        versions (``DenseBaseStore.bytes``)."""
         return self.store.bytes()
 
     def residual_store_bytes(self):

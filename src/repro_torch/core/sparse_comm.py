@@ -364,6 +364,27 @@ class SparseComm:
             return masked, blocks.sum(dim=1)
         return masked, blocks.sum(dim=1), delta - masked
 
+    def distribute_core(self, new_flat, dist_base):
+        """The dense base store's distribution encode (the reference's
+        ``_distribute_encode_body``): the new global model (n,) against the
+        (T, n) stack of the targets' base rows, one message a row, through
+        one call of each of the wire's kernels: ``(new base rows (T, n),
+        counts (T,))``. On the CSR wires a new base row is the old one plus
+        the (on csr_q dequantized) decode of its payload and the count is
+        the stored one; on dense_masked the old row plus the masked delta,
+        counting its survivors. Disabled, every new row is the model itself
+        (``base + (g - base)`` would re-round), count n. The caller books
+        the counts."""
+        T, n = dist_base.shape
+        g = new_flat.expand(T, n)
+        if not self.enabled:
+            return g.clone(), torch.full((T,), n, device=new_flat.device)
+        if self.wire_format in CSR_FORMATS:
+            _, stored, decoded = self.csr_core(g, dist_base)
+            return dist_base + decoded, stored
+        masked, nnz = self.batch_core(g, dist_base)
+        return dist_base + masked, nnz
+
     def encode(self, new_params, base_params, residual=None):
         """One message ``new - base`` (+ ``residual``, a tree, under EF) ->
         (sparse delta tree, stats[, residual' tree]); booked at once.

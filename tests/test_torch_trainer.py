@@ -114,7 +114,8 @@ def test_default_device_is_the_card():
                   "engine": "sharded"}, id="override1"),
     pytest.param({"wire_format": "csr_q", "chunk_size": 64,
                   "engine": "sharded"}, id="override2"),
-    pytest.param({"base_store": "dense"}, id="override3"),
+    pytest.param({"base_store": "dense", "engine": "sharded"},
+                 id="override3"),
     pytest.param({"model": "qwen2-1.5b"}, id="override9")])
 def test_outside_the_slice_raises(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -3,6 +3,7 @@
 CUDA card at the paper CNN's full width, with and without faults.
 
     python3 tools/engine_drift.py [--seeds 5] [--runs F1,F2] [--out FILE]
+    python3 tools/engine_drift.py --runs G1,G2
 
 For each seed, phase 5f's runs (``chip_smoke.FAULT_RUNS``; by default F1,
 batched + csr, and F2, sequential + csr; ``chip_smoke.fault_config``: 7
@@ -10,10 +11,13 @@ rounds on phase 5's data, ``REFERENCE_CHURN`` with 5% corrupt uploads, a
 700 s deadline, a quorum floor of 2) run once with the faults and once
 without; each line prints every run's accuracy and ACO, the fault run's
 fleet dict, and with two runs the largest metric difference and the ACO
-difference between them. The two
+difference between them. Phase 5g's dense-store runs
+(``chip_smoke.DENSE_RUNS``, G1-G6: ``base_store="dense"``,
+``chip_smoke.DENSE_ROUNDS`` rounds on phase 5's data) run fault-free only.
+The two
 engines sum in another order, so ties at the sampled threshold fall apart
 round by round; this measures that spread, which ``chip_smoke.py`` phase
-5f's F1-against-F2 tolerance rests on.
+5f's F1-against-F2 and phase 5g's G1-against-G2 tolerances rest on.
 """
 import argparse
 import json
@@ -46,14 +50,24 @@ def main():
     port = SimpleNamespace(FedS3AConfig=FedS3AConfig,
                            REFERENCE_CHURN=REFERENCE_CHURN)
     data = make_dataset("basic", scale=0.02)
+    names = args.runs.split(",")
+    dense = all(n in cs.DENSE_RUNS for n in names)
+
+    def config(name, faulted, seed):
+        if dense:
+            engine, wire, ef, extra = cs.DENSE_RUNS[name]
+            return FedS3AConfig(rounds=cs.DENSE_ROUNDS, engine=engine,
+                                wire_format=wire, error_feedback=ef,
+                                base_store="dense", seed=seed, **extra)
+        return cs.fault_config(port, cs.FAULT_RUNS[name], faulted=faulted,
+                               seed=seed)
+
     rows = []
     for seed in range(args.seeds):
-        for faulted in (True, False):
+        for faulted in ((False,) if dense else (True, False)):
             out = {}
-            for name in args.runs.split(","):
-                spec = cs.FAULT_RUNS[name]
-                tr = FedS3ATrainer(data, cs.fault_config(
-                    port, spec, faulted=faulted, seed=seed))
+            for name in names:
+                tr = FedS3ATrainer(data, config(name, faulted, seed))
                 out[name] = tr.train()
             row = {"seed": seed, "faulted": faulted,
                    "accuracy": {n: o["metrics"]["accuracy"]
