@@ -33,7 +33,13 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    bit for bit at every K a degraded round gives them (2-5), at (K, N)
    and every chunk width, each K's calls back to back; and the same four
    at (K, N) for every row count a dense-store distribution gives them (1
-   and 6-10);
+   and 6-10); then the FL language-model path's: the vocabulary-wide
+   ``masked_pseudo_ce`` kernels (one block a row) forward, mask and
+   backward bit for bit at (16, 151936), (96, 151936) and (7, 1025),
+   confident and tied rows planted, the two timed alone beside
+   ``torch.log_softmax`` / ``torch.softmax``; ``csr_compact`` at (1, N)
+   and (6, N) and ``staleness_agg`` at (1-6, N) at phase 5h's flat widths
+   (up to N = 420,566,528: 2.52e9 elements in six rows);
 4. run the port's sequential engine twice on the card and once on the CPU
    from the same initial weights (full-width paper CNN, dropout 0,
    2 rounds) and compare schedules, parameters, metrics and ACO; then
@@ -113,6 +119,14 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    and G1's setting for 2 rounds at dropout 0 on the card against the
    CPU; every row count the runs launched a compaction kernel at must be
    one phase 3 held;
+5h. the FL language-model path: qwen2-1.5b at every published width, 4
+   of 28 layers (2 if the batched run's peak passes 70 GB), bf16 compute,
+   federated as a final-token classifier (``FedS3AConfig(model=...)``,
+   ``make_lm_dataset``, 3 rounds): L2 batched and L1 sequential csr, each
+   with exact launches and the rows Eq. 5 kept; L0, reduced widths with
+   the full vocabulary in float32, on the card against its CPU twin (a
+   subprocess started at the phase's start); every (kernel, rows, width)
+   launched must be one phase 3 held;
 6. serve qwen2-1.5b at full width (random weights, bf16): 8 requests
    of 512-2048 tokens, bucket 2048, 32 new tokens, through
    ``serve_batch`` with the flash kernel, the counters showing exactly
@@ -121,7 +135,8 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    2-layer float32 model of the same width on the card against the CPU;
 7. print one ``{"kernels": [...], "paths": ..., "serve": ...,
    "baselines": ..., "baselines_card_vs_cpu": ..., "chunked_card_vs_cpu":
-   ..., "fleet": ..., "faults": ..., "dense_store": ...}`` line, then the
+   ..., "fleet": ..., "faults": ..., "dense_store": ..., "lm_path":
+   ...}`` line, then the
    result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -135,6 +150,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2644,6 +2660,444 @@ def dense_store(torch, port, ops, paths, held_rows):
                                          c.out["metrics"]["accuracy"]]}}
 
 
+# -- the FL language-model path: phase 3's vocabulary-wide kernels, phase 5h -
+LM_ARCH = "qwen2-1.5b"
+LM_LAYERS = 4                 # of 28: the (K, N) stacks, ring and Adam
+                              # state of all 28 (N = 1.54e9) pass 80 GB
+LM_LAYERS_CUT = 2             # if 4 layers run out of memory
+LM_V = 151_936
+LM_B = 16                     # the client and server batch
+LM_DATA = dict(vocab_size=LM_V, seq_len=16, num_classes=8,
+               samples_per_client=48, seed=0)
+LM_RUN = dict(rounds=3, C=0.6, tau=2, batch_size=LM_B, lr=5e-4, seed=0)
+LM_L0_ROUNDS = 2
+# L0 departs from L1's setting in two fields, each for what it holds: an
+# absolute sparse threshold below every update sends every nonzero element,
+# since under p0.2 the Adam + L1 updates tie at the threshold and an ulp
+# between card and CPU moved 1.6M of 40M parameters by up to 3.05e-3 (an
+# H100 80GB HBM3 at 700 W; PERF.md §6); and a pseudo-label threshold that
+# every row passes, so that the wide backward's every row is non-zero
+# inside the trainer (at 0.95 the float32 L0 keeps no row)
+LM_L0_KW = dict(sparse_threshold=1e-6, threshold=1e-3)
+# L0 card vs CPU: phase 4's metric and ACO bounds; the parameters' 1e-3
+# does not hold at N = 40M. Adam turns a near-zero gradient (the data term
+# about cancelling the L1 term) into a step of up to lr either way, and
+# card and CPU round such gradients to either sign: max 1.46e-3 in every
+# run, with 8,042-29,782 of 40,077,568 parameters past atol 1e-4 + rtol
+# 1e-3 from run to run, metrics equal, ACO 1.9e-7-4.8e-7 apart (an H100
+# 80GB HBM3 at 700 W; PERF.md §6). Held at 4 lr and at a 4e-3 share
+L0_PARAM_TOL = 4 * LM_RUN["lr"]
+L0_OUTSIDE_SHARE = 4e-3
+LM_L0_THREADS = 6             # the CPU twin's intra-op threads (of 8 cores)
+LM_PEAK_CUT = 70 * 10**9      # L2's peak past 70 GB: cut to 2 layers
+# (rows, C) the vocabulary-wide masked_pseudo_ce kernels are held at: a
+# client or server batch, six clients' batches at once, an odd width
+MPCE_WIDE_SHAPES = ((LM_B, LM_V), (6 * LM_B, LM_V), (7, 1025))
+MPCE_WIDE_TIMED = ((LM_B, LM_V), (6 * LM_B, LM_V))
+
+
+def lm_config(port, layers=LM_LAYERS, **kw):
+    import dataclasses
+    return dataclasses.replace(port.get_config(LM_ARCH), num_layers=layers,
+                               **kw)
+
+
+def lm_widths(port):
+    """The flat N of phase 5h's models: full width at 4 and 2 layers, and
+    L0's reduced widths with the full vocabulary."""
+    import math
+    return sorted({sum(math.prod(t.shape) for t in
+                       port.tree_leaves(port.lm.param_template(c)))
+                   for c in (lm_config(port), lm_config(port, LM_LAYERS_CUT),
+                             l0_config(port))})
+
+
+def l0_config(port):
+    return port.get_config(LM_ARCH).reduced(vocab_size=LM_V,
+                                            dtype="float32")
+
+
+def _wide_logits(torch, gen, dev, n, c):
+    """(n, c) logits: random rows; every other row confident (one logit
+    raised 20 above the row's max, so its softmax max passes theta); every
+    7th with its maximum tied at a later column."""
+    x = torch.randn((n, c), generator=gen, device=dev) * 3
+    rows = torch.arange(0, n, 2, device=dev)
+    cols = torch.randint(0, c, (len(rows),), generator=gen, device=dev)
+    x[rows, cols] = x[rows].max(dim=1).values + 20.0
+    x[::7, c - 1] = x[::7].max(dim=1).values
+    return x
+
+
+def _sum_report(torch, logits, rows):
+    """Per row: the float64 sum of exp(x - max) beside its two float32
+    roundings (down, up), for a row whose bits differ."""
+    out = []
+    for r in rows[:4]:
+        x = logits[r]
+        s64 = float(torch.exp(x - x.max()).double().sum())
+        lo = float(torch.tensor(s64, dtype=torch.float64).float())
+        hi = lo
+        if lo > s64:
+            lo = float(torch.nextafter(torch.tensor(lo), torch.tensor(0.0)))
+        elif lo < s64:
+            hi = float(torch.nextafter(torch.tensor(lo),
+                                       torch.tensor(float("inf"))))
+        out.append(f"row {r}: float64 sum {s64!r}, float32 roundings "
+                   f"{lo!r} / {hi!r}")
+    return out
+
+
+def check_masked_pseudo_ce_wide(torch, ops, ref, dev, gen, flushes):
+    """Phase 3, the vocabulary-wide kernels (C > 1024, one block a row):
+    forward (loss and mask) and backward, through autograd and alone, bit
+    for bit against the float64-summed plain versions on the same tensors,
+    confident rows planted; then forward alone and backward alone timed at
+    the FL LM's shapes, beside the plain versions and the library calls
+    (``torch.log_softmax(x).max(1)``, ``torch.softmax``)."""
+    fwd, bwd = [], []
+    for n, c in MPCE_WIDE_SHAPES:
+        logits = _wide_logits(torch, gen, dev, n, c)
+        g = torch.rand((n,), generator=gen, device=dev)
+        loss_k, mask_k, grad_k = _mpce_call(torch, ops.masked_pseudo_ce,
+                                            None, logits, g)
+        loss_p, mask_p = ref.masked_pseudo_ce_ref(logits, THETA)
+        grad_p = ref.masked_pseudo_ce_grad(logits, mask_k, g)
+        grad_d = ops.masked_pseudo_ce_grad(logits, mask_k, g)
+        torch.cuda.synchronize()
+        same = {"loss": _same_bits(torch, loss_k.detach(), loss_p),
+                "mask": _same_bits(torch, mask_k, mask_p),
+                "grad (autograd)": _same_bits(torch, grad_k, grad_p),
+                "grad (alone)": _same_bits(torch, grad_d, grad_p)}
+        masked = int(mask_k.sum())
+        nonzero = int((grad_d != 0).any(dim=1).sum())
+        log(f"  masked_pseudo_ce ({n}, {c}), one block a row: same bits as "
+            f"plain {same}; {masked} of {n} rows masked in, {nonzero} "
+            f"gradient rows non-zero")
+        if not all(same.values()):
+            bad = ((loss_k.detach() != loss_p) | (grad_d != grad_p).any(1)
+                   | (grad_k != grad_p).any(1)).nonzero()[:, 0].tolist()
+            for line in _sum_report(torch, logits, bad):
+                log(f"    {line}")
+        check(all(same.values()), f"masked_pseudo_ce ({n}, {c}): the wide "
+              f"kernels differ from the plain versions' bits: {same}")
+        check(0 < masked < n and nonzero == masked,
+              f"masked_pseudo_ce ({n}, {c}): {masked} rows masked in, "
+              f"{nonzero} non-zero gradient rows")
+        if (n, c) not in MPCE_WIDE_TIMED:
+            continue
+        mask = mask_k
+        fwd.append({"shape": [n, c], "timed": "forward alone", **_timed(
+            torch, lambda: ops.masked_pseudo_ce(logits, THETA),
+            lambda: ref.masked_pseudo_ce_ref(logits, THETA),
+            4 * n * c + 8 * n, 4 * n * c, reps=30, flushes=flushes,
+            library=lambda: torch.log_softmax(logits, dim=1).max(dim=1))})
+        bwd.append({"shape": [n, c], "timed": "backward alone", **_timed(
+            torch, lambda: ops.masked_pseudo_ce_grad(logits, mask, g),
+            lambda: ref.masked_pseudo_ce_grad(logits, mask, g),
+            8 * n * c + 8 * n, 7 * n * c, reps=30, flushes=flushes,
+            library=lambda: torch.softmax(logits, dim=1))})
+        for what, sh in (("forward", fwd[-1]), ("backward", bwd[-1])):
+            log(f"  masked_pseudo_ce {what} ({n}, {c}): kernel "
+                f"{sh['ms']:.5f} ms, plain {sh['plain_ms']:.5f} ms, library "
+                f"{sh['library_ms']:.5f} ms, bound {sh['bound_ms']:.5f} ms "
+                f"({sh['bound_by']})")
+        del logits, g, loss_k, mask_k, grad_k, loss_p, grad_p, grad_d
+    return fwd, bwd
+
+
+def check_lm_width_compaction(torch, ops, ref, comm_mod, port, dev, gen,
+                              flushes):
+    """Phase 3 at the FL LM's flat widths (phase 5h's N at 4 and 2 layers
+    and L0's): ``csr_compact`` at (1, N) and (6, N) bit for bit, the (6, N)
+    plain version row by row (rows are independent; the whole (6, N) plain
+    version needs past 40 GB), and ``staleness_agg`` at (k, N), k = 1-6
+    (the sequential engine's group sums take any k up to K), within rtol
+    1e-6 as at the CNN's width. Six rows of 420,566,528 are 2.52e9
+    elements, past 2**31. Times at the 4-layer N."""
+    shapes = {"csr_compact": [], "staleness_agg": []}
+    held = set()
+    widths = lm_widths(port)
+    n_main = max(widths)
+    for n in widths:
+        cap = comm_mod.SparseComm("p0.2").payload_capacity(n)
+        x6 = torch.randn((6, n), generator=gen, device=dev) * 1e-3
+        x6[:, ::10] = 0.0
+        thr6 = comm_mod.local_quantile_thresholds(x6, 0.2)
+        for k in (1, 6):
+            xx, tt = (x6[:1].contiguous(), thr6[:1].contiguous()) if k == 1 \
+                else (x6, thr6)
+            vk, ik, nk = ops.csr_compact(xx, tt, cap)
+            same = True
+            for r in range(k):
+                vp, ip, np_ = ref.csr_compact2d_ref(xx[r:r + 1], tt[r:r + 1],
+                                                    cap)
+                same &= torch.equal(vk[r:r + 1], vp) and \
+                    torch.equal(ik[r:r + 1], ip) and \
+                    torch.equal(nk[r:r + 1], np_)
+                del vp, ip, np_
+            torch.cuda.synchronize()
+            log(f"  csr_compact ({k}, {n}), cap {cap}: nnz {nk.tolist()}, "
+                f"bit-exact {same}")
+            check(same, f"csr_compact ({k}, {n}): kernel differs from plain")
+            held.add(("csr_compact", k, n))
+            if n == n_main:
+                del vk, ik, nk
+                shapes["csr_compact"].append({
+                    "shape": [k, n], "case": "FL LM upload / chain advance",
+                    "cap": cap, **csr_compact_call(torch, ops, xx, tt, cap,
+                                                   flushes),
+                    "plain_ms": time_ms(torch, lambda: ref.csr_compact2d_ref(
+                        xx[:1], tt[:1], cap), reps=3) * k,
+                    "plain_how": "row by row (k calls at (1, N))",
+                    "library_ms": None})
+        del thr6
+        for k in range(1, 7):
+            w = torch.rand((k,), generator=gen, device=dev)
+            w = w / w.sum()
+            d = x6[:k]
+            out_k = ops.staleness_agg(d, w)
+            out_p = ref.staleness_agg_ref(d, w)
+            torch.cuda.synchronize()
+            err = float((out_k - out_p).abs().max())
+            close = torch.allclose(out_k, out_p, rtol=1e-6, atol=0.0)
+            log(f"  staleness_agg ({k}, {n}): max |kernel - plain| {err:.3g}, "
+                f"allclose rtol 1e-6: {close}")
+            check(close, f"staleness_agg ({k}, {n}) off by {err}")
+            held.add(("staleness_agg", k, n))
+            del out_k, out_p
+            if n == n_main and k in (1, 6):
+                shapes["staleness_agg"].append({"shape": [k, n], **_timed(
+                    torch, lambda: ops.staleness_agg(d, w),
+                    lambda: ref.staleness_agg_ref(d, w),
+                    (k + 1) * 4 * n + 4 * k, 2 * k * n, reps=10,
+                    plain_reps=3, flushes=flushes,
+                    library=lambda: w @ d)})
+        del x6, d
+        torch.cuda.empty_cache()
+    return shapes, held
+
+
+def lm_run(torch, port, ops, name, cfg, engine, dev, rounds, init=None,
+           **extra):
+    """One phase-5h run of the FL LM path: the launch counters set to 0
+    just before it and read just after; s/round, accuracy, ACO, the rows
+    the Eq. 5 mask kept each round, launches by shape and peak device
+    memory."""
+    import numpy as np
+    data = port.make_lm_dataset(10, **LM_DATA)
+    kept, mpce = [], ops.masked_pseudo_ce
+
+    def counting(logits, threshold):
+        loss, mask = mpce(logits, threshold)
+        kept[-1] += mask.sum()
+        return loss, mask
+    ops.reset_launches()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = port.FedS3ATrainer(data, port.FedS3AConfig(
+        model=cfg, engine=engine, device=dev,
+        **dict(LM_RUN, rounds=rounds, **extra)), init_params=init)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ops.masked_pseudo_ce = counting
+    try:
+        for _ in range(rounds):
+            kept.append(torch.zeros((), device=dev))
+            out = tr.train(1)
+    finally:
+        ops.masked_pseudo_ce = mpce
+    m = out["metrics"]
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    by_shape = sorted([*key, c] for key, c in ops.LAUNCHES_BY_SHAPE.items())
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    aco = out["aco"]
+    check(tr.engine == engine and tr.adapter.kind == "lm",
+          f"{name} ran {tr.engine}, {tr.adapter.kind}")
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()),
+          f"{name}: metrics out of range: {m}")
+    check(0.0 < aco < (1.0 if "sparse_threshold" not in extra else 2.0),
+          f"{name}: ACO out of range: {aco}")
+    check(bool(torch.isfinite(tr._global_flat).all()),
+          f"{name}: non-finite global parameters")
+    res = {"s_per_round": (t2 - t1) / rounds, "setup_s": t1 - t0,
+           "accuracy": m["accuracy"], "metrics": m, "aco": aco,
+           "n_params": int(tr._global_flat.numel()),
+           "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "mask_kept": [int(k) for k in kept], "launches": launches,
+           "launches_by_shape": by_shape, "peak_device_bytes": peak,
+           "participants": [l.participants for l in tr.logs]}
+    log(f"  {name} ({engine}, {dev}, {cfg.num_layers} layers, N "
+        f"{res['n_params']}, {cfg.dtype}): {res['s_per_round']:.3f} s a "
+        f"round (set-up {res['setup_s']:.3f} s), accuracy "
+        f"{m['accuracy']:.6f}, ACO {aco:.6f}, rows the mask kept a round "
+        f"{res['mask_kept']}, peak device memory {peak} B; launches by shape "
+        f"{by_shape}")
+    return SimpleNamespace(tr=tr, res=res, out={"metrics": m, "aco": aco})
+
+
+def l0_init(torch, port):
+    """L0's initial weights, drawn on the CPU: the same on card and twin."""
+    return port.tree_to_numpy(port.lm.init_params(
+        l0_config(port), torch.Generator().manual_seed(0)))
+
+
+def lm_l0_cpu(out_path):
+    """L0's CPU twin, run as a subprocess while the card runs L1 and L2:
+    writes the final flat parameters, metrics, ACO, schedule and the rows
+    the mask kept to ``out_path`` (.npz)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
+    from repro_torch.core.sparse_comm import flatten_tree
+    from repro_torch.data import make_lm_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.weights import params_to_numpy, tree_to_numpy
+    torch.set_num_threads(LM_L0_THREADS)
+    port = SimpleNamespace(get_config=get_config, FedS3AConfig=FedS3AConfig,
+                           FedS3ATrainer=FedS3ATrainer, lm=lm,
+                           make_lm_dataset=make_lm_dataset,
+                           params_to_numpy=params_to_numpy,
+                           tree_to_numpy=tree_to_numpy)
+    r = lm_run(torch, port, ops, "L0 CPU", l0_config(port), "sequential",
+               "cpu", LM_L0_ROUNDS, l0_init(torch, port), **LM_L0_KW)
+    np.savez(out_path, flat=flatten_tree(r.tr.global_params).numpy(),
+             aco=r.out["aco"], s_per_round=r.res["s_per_round"],
+             metrics=json.dumps(r.out["metrics"]),
+             participants=json.dumps(r.res["participants"]),
+             mask_kept=np.asarray(r.res["mask_kept"]))
+
+
+def lm_path(torch, port, ops, held):
+    """Phase 5h. qwen2-1.5b at every published width (bf16 compute,
+    float32 parameters), 4 of 28 layers (2 if the batched engine's peak
+    passes ``LM_PEAK_CUT``), federated as a final-token classifier: L2
+    batched + csr, L1 sequential + csr, 3 rounds each, each
+    held to its launches (the Eq. 5 kernels at (16, V) once each a client
+    or server step; csr_compact K + 1 a round sequential, 2 batched); L0,
+    L1's setting at reduced widths but the full vocabulary in float32 for 2
+    rounds (``LM_L0_KW``), on the card against its CPU twin (a subprocess
+    started first) within phase 4's metric and ACO bounds and
+    ``L0_PARAM_TOL``. Every (kernel, rows, width) launched must have been
+    held in phase 3."""
+    # L0's CPU twin runs beside L1 and L2, in a process of its own
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_l0_")
+    twin_out = os.path.join(tmp, "l0_cpu.npz")
+    twin_err = open(os.path.join(tmp, "l0_cpu.err"), "w+")
+    twin = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--lm-l0-cpu", twin_out],
+                            stdout=subprocess.DEVNULL, stderr=twin_err)
+    try:
+        return _lm_path_runs(torch, port, ops, held, twin, twin_out,
+                             twin_err)
+    finally:
+        if twin.poll() is None:
+            twin.kill()
+            twin.wait()
+        twin_err.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _lm_try(torch, port, ops, name, layers, engine):
+    """``lm_run`` on the card at ``layers`` layers, or None if it ran out
+    of memory (its tensors die with the traceback, outside the except)."""
+    try:
+        return lm_run(torch, port, ops, name, lm_config(port, layers),
+                      engine, "cuda", LM_RUN["rounds"])
+    except torch.cuda.OutOfMemoryError as e:
+        log(f"  {name} ran out of memory at {layers} layers "
+            f"({str(e).splitlines()[0]})")
+    return None
+
+
+def _lm_path_runs(torch, port, ops, held, twin, twin_out, twin_err):
+    import numpy as np
+    runs, layers = {}, LM_LAYERS
+    # L2 first: if the batched engine at 4 layers runs out of memory or
+    # peaks past LM_PEAK_CUT, both runs are cut to 2 layers
+    for name, engine in (("L2", "batched"), ("L1", "sequential")):
+        r = _lm_try(torch, port, ops, name, layers, engine)
+        if name == "L2" and (r is None or
+                             r.res["peak_device_bytes"] > LM_PEAK_CUT):
+            runs["L2 at 4 layers"] = {"out_of_memory": True} if r is None \
+                else r.res
+            peak = "past the card" if r is None else \
+                r.res["peak_device_bytes"]
+            log(f"  L2 at {layers} layers: peak {peak} B, over "
+                f"{LM_PEAK_CUT} B: phase 5h cut to {LM_LAYERS_CUT} layers")
+            del r
+            torch.cuda.empty_cache()
+            layers = LM_LAYERS_CUT
+            r = _lm_try(torch, port, ops, name, layers, engine)
+        check(r is not None, f"{name} ran out of memory at {layers} layers")
+        runs[name] = r.res
+        lv = r.res["launches"]
+        K = [len(p) for p in r.res["participants"]]
+        steps = lv["masked_pseudo_ce"]
+        check(steps > 0 and lv["masked_pseudo_ce_bwd"] == steps,
+              f"{name}: {steps} forward and {lv['masked_pseudo_ce_bwd']} "
+              "backward Eq. 5 launches")
+        want = sum(k + 1 for k in K) if engine == "sequential" else \
+            2 * len(K)
+        check(lv["csr_compact"] == want, f"{name}: csr_compact launched "
+              f"{lv['csr_compact']} times, expected {want}")
+        check(lv["staleness_agg"] > 0, f"{name}: staleness_agg never ran")
+        for k in ("sparse_delta", "csr_quant", "flash_attention"):
+            check(lv[k] == 0, f"{name}: {k} launched off its path")
+        del r
+        torch.cuda.empty_cache()
+    card = lm_run(torch, port, ops, "L0", l0_config(port), "sequential",
+                  "cuda", LM_L0_ROUNDS, l0_init(torch, port), **LM_L0_KW)
+    runs["L0"] = card.res
+    twin.wait(timeout=900)
+    twin_err.seek(0)
+    check(twin.returncode == 0, f"L0's CPU twin failed: "
+          f"{twin_err.read()[-2000:]}")
+    cpu = np.load(twin_out)
+    flat = port.flatten_tree(card.tr.global_params).cpu().numpy()
+    worst, outside, total = _param_diff(np, {"flat": flat},
+                                        {"flat": cpu["flat"]})
+    cpu_m = json.loads(str(cpu["metrics"]))
+    mdiff, adiff = _drift(card.out, {"metrics": cpu_m,
+                                     "aco": float(cpu["aco"])})
+    same_sched = card.res["participants"] == json.loads(
+        str(cpu["participants"]))
+    same_kept = card.res["mask_kept"] == cpu["mask_kept"].tolist()
+    log(f"  L0 card vs CPU: schedules equal {same_sched}, rows kept "
+        f"{card.res['mask_kept']} / {cpu['mask_kept'].tolist()}, max |diff| "
+        f"{worst:.3g} ({outside} of {total} outside atol 1e-4 + rtol 1e-3), "
+        f"max |metric diff| {mdiff:.3g}, |ACO diff| {adiff:.3g}; the CPU "
+        f"twin {float(cpu['s_per_round']):.3f} s a round")
+    runs["L0"]["card_vs_cpu"] = {
+        "max_diff": worst, "outside": outside, "metric_diff": mdiff,
+        "aco_diff": adiff, "cpu_aco": float(cpu["aco"]),
+        "cpu_s_per_round": float(cpu["s_per_round"])}
+    check(same_sched and same_kept, "L0: card and CPU schedules or kept "
+          "rows differ")
+    check(worst <= L0_PARAM_TOL and outside <= L0_OUTSIDE_SHARE * total
+          and mdiff < 1e-4 and adiff < 2e-3,
+          f"L0 card vs CPU: parameters {worst} ({outside} of {total} "
+          f"outside atol / rtol), metrics {mdiff}, ACO {adiff}")
+    del card
+    torch.cuda.empty_cache()
+    launched = sorted({(kern, rows, width) for name in ("L1", "L2", "L0")
+                       for kern, rows, width, _ in
+                       runs[name]["launches_by_shape"]})
+    missing = [x for x in launched if x not in held]
+    log(f"  launched (kernel, rows, width): {launched}")
+    check(not missing, f"phase 5h launched {missing}, not held in phase 3")
+    return {"layers": layers, "runs": runs}
+
+
 # -- phase 6: serving qwen2-1.5b at full width -----------------------------
 SERVE_ARCH = "qwen2-1.5b"
 SERVE_PARAMS = 1_543_655_424  # param_count() of the full-width config
@@ -2823,6 +3277,8 @@ def main():
                  "run it from a checkout of the repository")
     if sys.argv[1:2] == ["--fault-traces"]:
         return cpu_fault_traces(sys.argv[2])
+    if sys.argv[1:2] == ["--lm-l0-cpu"]:
+        return lm_l0_cpu(sys.argv[2])
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     if not torch.cuda.is_available():
@@ -2833,7 +3289,10 @@ def main():
     from repro_torch.core import fleet_ckpt
     from repro_torch.core import sparse_comm as comm_mod
     from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
-    from repro_torch.data import make_dataset, make_fleet_dataset
+    from repro_torch.core.sparse_comm import flatten_tree
+    from repro_torch.data import (make_dataset, make_fleet_dataset,
+                                  make_lm_dataset)
+    from repro_torch.tree import leaves as tree_leaves
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch.serve import serve_batch
@@ -2854,7 +3313,9 @@ def main():
         serve_batch=serve_batch, make_prefill_step=make_prefill_step,
         make_serve_step=make_serve_step,
         tree_from_numpy=tree_from_numpy, tree_to_numpy=tree_to_numpy,
-        REFERENCE_CHURN=REFERENCE_CHURN, fleet_ckpt=fleet_ckpt)
+        REFERENCE_CHURN=REFERENCE_CHURN, fleet_ckpt=fleet_ckpt,
+        make_lm_dataset=make_lm_dataset, tree_leaves=tree_leaves,
+        flatten_tree=flatten_tree)
 
     t_start = time.perf_counter()
     log("phase 1: card")
@@ -2902,6 +3363,20 @@ def main():
         f"at K = {list(DIST_KS)}, full width")
     every_k += check_every_k(torch, ops, ref, comm_mod, port, dev, gen,
                              ks=DIST_KS, chunks=False)
+    log(f"phase 3 (FL LM): masked_pseudo_ce above 1024 classes at "
+        f"{list(MPCE_WIDE_SHAPES)}; csr_compact and staleness_agg at the FL "
+        f"LM's widths {lm_widths(port)}")
+    wide_fwd, wide_bwd = check_masked_pseudo_ce_wide(torch, ops, ref, dev,
+                                                     gen, flushes)
+    kernels[0]["other_shapes"] += wide_fwd
+    kernels[1]["other_shapes"] += wide_bwd
+    lm_shapes, lm_held = check_lm_width_compaction(
+        torch, ops, ref, comm_mod, port, dev, gen, flushes)
+    for name, shapes in lm_shapes.items():
+        next(k for k in kernels if k["name"] == name)["other_shapes"] += \
+            shapes
+    lm_held |= {(kern, n, c) for n, c in MPCE_WIDE_SHAPES
+                for kern in ("masked_pseudo_ce", "masked_pseudo_ce_bwd")}
     del flushes
     s_serve = max(len(p) for p in serve_prompts(
         np, get_config(SERVE_ARCH).vocab_size))
@@ -2975,6 +3450,20 @@ def main():
     log(f"  phase 5g took {time.perf_counter() - t0:.1f} s")
     for name, res in dense_res["runs"].items():
         paths[f"dense {name}"] = res
+    log(f"phase 5h: the FL language-model path ({LM_ARCH} at full width, "
+        f"{LM_LAYERS} of 28 layers, bf16 compute; L0 reduced widths, float32, "
+        "card vs CPU)")
+    t0 = time.perf_counter()
+    lm_res = lm_path(torch, port, ops, lm_held)
+    log(f"  phase 5h took {time.perf_counter() - t0:.1f} s")
+    for k in kernels:
+        for sh in k["other_shapes"]:
+            key = (k["name"], *sh["shape"])
+            if key in lm_held and "chunk" not in sh.get("case", ""):
+                sh["lm_launches"] = {
+                    name: sum(c for *kk, c in r.get("launches_by_shape", ())
+                              if tuple(kk) == key)
+                    for name, r in lm_res["runs"].items()}
 
     log(f"phase 6: serving {SERVE_ARCH} at full width ({SERVE_REQUESTS} "
         f"requests, bucket {SERVE_BUCKET}, max_new {SERVE_NEW})")
@@ -3002,6 +3491,7 @@ def main():
                       base_parity, "chunked_card_vs_cpu": chunk_parity,
                       "fleet": fleet_res, "faults": fault_res,
                       "dense_store": dense_res, "every_k_calls": every_k,
+                      "lm_path": lm_res,
                       "gpu": smi}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

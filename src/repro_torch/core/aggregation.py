@@ -19,9 +19,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.sparse_comm import (csr_columns, csr_q_columns,
-                                          flatten_tree, unflatten_like)
+from repro_torch.core.sparse_comm import (csr_columns, flatten_tree,
+                                          unflatten_like)
+from repro_torch.kernels.ref import csr_unpack_indices_ref
 from repro_torch.kernels import ops as kops
+from repro_torch.tree import tree_map
 
 
 def _weighted_sum_trees(trees, weights):
@@ -95,9 +97,9 @@ def aggregate(server_params, client_params, *, data_sizes, stalenesses,
         w = np.full(len(group_models), 1.0 / len(group_models))
         unsup = _weighted_sum_trees(group_models, w)
 
-    return {k: (f_weight * s.to(torch.float32)
-                + (1.0 - f_weight) * unsup[k].to(torch.float32)).to(s.dtype)
-            for k, s in server_params.items()}
+    return tree_map(lambda s, u: (f_weight * s.to(torch.float32)
+                                  + (1.0 - f_weight) * u.to(torch.float32)
+                                  ).to(s.dtype), server_params, unsup)
 
 
 def _blend(server_flat, unsup, f_weight):
@@ -117,16 +119,19 @@ def blend_flat(server_flat, client_flat, w, f_weight):
     return _blend(server_flat, kops.staleness_agg(client_flat, w), f_weight)
 
 
-def _scatter_rows(cols, values, w, n):
-    """``sum_k w_k * values_k`` scattered to columns ``cols`` (K, cap) of
-    an (n + cap,) accumulator, cut to (n,). Rows are added in order k =
-    0..K-1; within a row every column is distinct (padding goes to spare
-    columns past n, ``csr_columns``), so each column takes at most one add
-    per row and the sum is the same on every run."""
-    out = torch.zeros(n + cols.shape[1], dtype=torch.float32,
+def _scatter_rows(indices, stored, values, w, n):
+    """``sum_k w_k * values_k`` scattered to the ``csr_columns`` of
+    (K, cap) ``indices`` with ``stored`` live slots, in an (n + cap,)
+    accumulator cut to (n,). Rows are added in order k = 0..K-1, each
+    with its own columns (one row's int64 columns alive at a time); within
+    a row every column is distinct (padding goes to spare columns past n),
+    so each column takes at most one add per row and the sum is the same
+    on every run."""
+    out = torch.zeros(n + indices.shape[1], dtype=torch.float32,
                       device=values.device)
-    for k in range(cols.shape[0]):
-        out.index_add_(0, cols[k], w[k] * values[k].to(torch.float32))
+    for k in range(indices.shape[0]):
+        cols = csr_columns(indices[k:k + 1], stored[k:k + 1], n)[0]
+        out.index_add_(0, cols, w[k] * values[k].to(torch.float32))
     return out[:n]
 
 
@@ -134,8 +139,7 @@ def csr_weighted_scatter(values, indices, stored, w, n):
     """``sum_k w_k * decode(payload_k)`` as an (n,) f32 vector from K CSR
     payload rows (values, indices) (K, cap) with ``stored`` (K,) live
     slots (``aggregation.py:120-133``), without the dense (K, n) decode."""
-    return _scatter_rows(csr_columns(indices, stored, n), values,
-                         w.to(torch.float32), n)
+    return _scatter_rows(indices, stored, values, w.to(torch.float32), n)
 
 
 def csr_q_weighted_scatter(qvals, qoffs, qcnt, scales, stored, w, n):
@@ -144,7 +148,8 @@ def csr_q_weighted_scatter(qvals, qoffs, qcnt, scales, stored, w, n):
     and block counts, as a receiver does, and the dequantization folded
     into the weight, row k adding ``(w_k * scale_k) * q``."""
     ws = w.to(torch.float32) * scales.to(torch.float32)
-    return _scatter_rows(csr_q_columns(qoffs, qcnt, stored, n), qvals, ws, n)
+    return _scatter_rows(csr_unpack_indices_ref(qoffs, qcnt), stored, qvals,
+                         ws, n)
 
 
 def blend_flat_csr(server_flat, base_flat, values, indices, stored, w,

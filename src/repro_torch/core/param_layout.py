@@ -21,19 +21,18 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 
+from repro_torch.tree import leaves_with_path, path_name
+
 __all__ = ["ParamLayout", "leaf_sizes"]
 
 
 def leaf_sizes(template):
-    """``[(name, size), ...]`` of a parameter dict ``{name: tensor or
-    shape}`` in the flat vector's order (sorted names, as
-    ``flatten_tree``); the names are the reference's leaf path names."""
-    out = []
-    for name in sorted(template):
-        leaf = template[name]
-        shape = tuple(getattr(leaf, "shape", leaf))
-        out.append((name, int(math.prod(shape))))
-    return out
+    """``[(name, size), ...]`` of a parameter tree (nested dicts and lists
+    of tensors) in the flat vector's order (``tree.leaves``, as
+    ``flatten_tree``); the names are the reference's leaf path names (keys
+    and indices joined by ``/``)."""
+    return [(path_name(path), int(math.prod(leaf.shape)))
+            for path, leaf in leaves_with_path(template)]
 
 
 def _match_override(name, overrides):

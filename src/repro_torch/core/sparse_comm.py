@@ -71,6 +71,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import (csr_dequantize_ref,
                                      csr_unpack_indices_ref,
                                      local_quantile_thresholds)
+from repro_torch.tree import leaves as tree_leaves
+from repro_torch.tree import tree_map
 
 CAP_FACTOR = 2.5          # payload capacity slack over the target keep_frac
 RESIDUAL_FRAC = 0.25      # EF residual: top fraction of N kept by magnitude
@@ -101,48 +103,58 @@ def _np(a):
 
 
 def tree_sub(a, b):
-    return {k: a[k] - b[k] for k in a}
+    return tree_map(torch.sub, a, b)
 
 
 def tree_add(a, b):
-    return {k: a[k] + b[k] for k in a}
+    return tree_map(torch.add, a, b)
 
 
 def flatten_tree(tree):
-    """{name: tensor} -> (N,) f32 in sorted-name order, the reference's
-    tree-leaves order (conv1_b, conv1_w, ..., out_w): the CSR column
-    indices mean the same parameter in both packages."""
-    return torch.cat([tree[k].reshape(-1).to(torch.float32)
-                      for k in sorted(tree)])
+    """A parameter tree -> (N,) f32 in the reference's tree-leaves order
+    (``tree.leaves``: dict keys sorted at every level, lists in order; the
+    CNN's conv1_b, conv1_w, ..., out_w): the CSR column indices mean the
+    same parameter in both packages."""
+    return torch.cat([leaf.reshape(-1).to(torch.float32)
+                      for leaf in tree_leaves(tree)])
 
 
 def unflatten_like(flat, tree):
-    out, idx = {}, 0
-    for k in sorted(tree):
-        n = tree[k].numel()
-        out[k] = flat[idx:idx + n].reshape(tree[k].shape).to(tree[k].dtype)
+    """(N,) flat vector -> ``tree``'s structure, shapes and dtypes (views
+    of ``flat`` where the dtype is float32)."""
+    idx = 0
+
+    def take(leaf):
+        nonlocal idx
+        n = leaf.numel()
+        out = flat[idx:idx + n].reshape(leaf.shape).to(leaf.dtype)
         idx += n
-    return out
+        return out
+    return tree_map(take, tree)
 
 
 def flatten_stacked(tree):
-    """{name: (K, ...)} with a leading client axis -> (K, N) f32; row i is
-    ``flatten_tree`` of client i's parameters."""
-    K = next(iter(tree.values())).shape[0]
-    return torch.cat([tree[k].reshape(K, -1).to(torch.float32)
-                      for k in sorted(tree)], dim=1)
+    """A tree of (K, ...) leaves with a leading client axis -> (K, N) f32;
+    row i is ``flatten_tree`` of client i's parameters."""
+    lv = tree_leaves(tree)
+    K = lv[0].shape[0]
+    return torch.cat([leaf.reshape(K, -1).to(torch.float32) for leaf in lv],
+                     dim=1)
 
 
 def unflatten_stacked(flat, template):
-    """(K, N) flat stack -> {name: (K, ...)} views. ``template`` is one
-    client's tree (tensors, possibly on the meta device) giving the
-    shapes."""
-    K, out, idx = flat.shape[0], {}, 0
-    for k in sorted(template):
-        n = math.prod(template[k].shape)
-        out[k] = flat[:, idx:idx + n].reshape((K,) + tuple(template[k].shape))
+    """(K, N) flat stack -> ``template``'s structure with (K, ...) views.
+    ``template`` is one client's tree (tensors, possibly on the meta
+    device) giving the shapes."""
+    K, idx = flat.shape[0], 0
+
+    def take(leaf):
+        nonlocal idx
+        n = math.prod(leaf.shape)
+        out = flat[:, idx:idx + n].reshape((K,) + tuple(leaf.shape))
         idx += n
-    return out
+        return out
+    return tree_map(take, template)
 
 
 def csr_columns(indices, stored, n):
@@ -158,13 +170,27 @@ def csr_columns(indices, stored, n):
                        n + slot[None])
 
 
+def _scatter_decode(values, indices, stored, n):
+    """Dense (K, n) f32 of (K, cap) rows ``values`` at ``indices``, one
+    row at a time through an (n + cap,) scratch row: the int64 columns and
+    the spare columns of one row are alive at a time, not of all K (at a
+    language model's width six rows' columns alone take 10 GB)."""
+    K, cap = values.shape
+    out = torch.empty((K, n), dtype=torch.float32, device=values.device)
+    row = torch.empty(n + cap, dtype=torch.float32, device=values.device)
+    for k in range(K):
+        row.zero_()
+        row.scatter_(0, csr_columns(indices[k:k + 1], stored[k:k + 1],
+                                    n)[0], values[k])
+        out[k] = row[:n]
+    return out
+
+
 def csr_decode(values, indices, stored, n):
     """The receiver's scatter of CSR rows (values, indices) (K, cap) with
     ``stored`` (K,) live slots each back to dense (K, n) f32, with no
     atomics (``csr_columns``)."""
-    K, cap = values.shape
-    out = torch.zeros((K, n + cap), dtype=torch.float32, device=values.device)
-    return out.scatter_(1, csr_columns(indices, stored, n), values)[:, :n]
+    return _scatter_decode(values, indices, stored, n)
 
 
 def csr_page_decode(values, indices, n):
@@ -187,10 +213,8 @@ def csr_q_columns(qoffs, qcnt, stored, n):
 def csr_q_decode(qvals, qoffs, qcnt, scales, stored, n):
     """The receiver's decode of csr_q rows to dense (K, n) f32: columns
     from offsets + block counts, values ``q * scale``."""
-    K, cap = qvals.shape
-    out = torch.zeros((K, n + cap), dtype=torch.float32, device=qvals.device)
-    return out.scatter_(1, csr_q_columns(qoffs, qcnt, stored, n),
-                        csr_dequantize_ref(qvals, scales))[:, :n]
+    return _scatter_decode(csr_dequantize_ref(qvals, scales),
+                           csr_unpack_indices_ref(qoffs, qcnt), stored, n)
 
 
 class SparseComm:
@@ -298,20 +322,30 @@ class SparseComm:
         return torch.full((delta.shape[0],), float(self.threshold),
                           dtype=torch.float32, device=delta.device)
 
-    def _encode_payload(self, delta, thresholds, cap):
-        """(K, n) deltas and (K,) thresholds -> (wire payload, stored,
-        decoded) at capacity ``cap``: the payload is (values, indices) on
-        csr and (qvals, offsets, block_counts, scales) on csr_q;
-        ``decoded`` is the receiver's dense decode of it, dequantized on
-        csr_q."""
-        n = delta.shape[1]
+    def _compact(self, delta, thresholds, cap):
+        """(K, n) deltas and (K,) thresholds -> (wire payload, stored) at
+        capacity ``cap``: the payload is (values, indices) on csr and
+        (qvals, offsets, block_counts, scales) on csr_q."""
         vals, idx, nnz = kops.csr_compact(delta, thresholds, cap)
         stored = torch.clamp(nnz, max=cap)
         if self.wire_format != "csr_q":
-            return (vals, idx), stored, csr_decode(vals, idx, stored, n)
-        payload = kops.csr_quantize(vals, idx, stored, n,
-                                    q_dtype=self.q_dtype)
-        return payload, stored, csr_q_decode(*payload, stored, n)
+            return (vals, idx), stored
+        return kops.csr_quantize(vals, idx, stored, delta.shape[1],
+                                 q_dtype=self.q_dtype), stored
+
+    def _decode(self, payload, stored, n):
+        """The receiver's dense (K, n) decode of a payload, dequantized on
+        csr_q."""
+        if self.wire_format != "csr_q":
+            return csr_decode(*payload, stored, n)
+        return csr_q_decode(*payload, stored, n)
+
+    def _encode_payload(self, delta, thresholds, cap):
+        """``_compact`` and the receiver's ``_decode``: (wire payload,
+        stored, decoded)."""
+        payload, stored = self._compact(delta, thresholds, cap)
+        return payload, stored, self._decode(payload, stored,
+                                             delta.shape[1])
 
     def csr_core(self, new_flat, base_flat, residual_flat=None, *,
                  pages=False):
@@ -331,10 +365,16 @@ class SparseComm:
             delta = delta + residual_flat
         delta = delta.contiguous()
         n = delta.shape[1]
-        payload, stored, decoded = self._encode_payload(
-            delta, self._row_thresholds(delta), self.payload_capacity(n))
+        thr = self._row_thresholds(delta)
         if residual_flat is None:
-            return payload, stored, decoded
+            # the decode needs only the payload: the (K, n) delta goes
+            # first (at a language model's width six rows take 10 GB)
+            payload, stored = self._compact(delta, thr,
+                                            self.payload_capacity(n))
+            del delta
+            return payload, stored, self._decode(payload, stored, n)
+        payload, stored, decoded = self._encode_payload(
+            delta, thr, self.payload_capacity(n))
         res = (delta - decoded).contiguous()
         rcap = self.residual_capacity(n)
         rvals, ridx, rnnz = kops.csr_compact(
@@ -400,7 +440,7 @@ class SparseComm:
             out = delta, {"nnz": n, "total": n, "rows": 1}
             if residual is None:
                 return out
-            return out + ({k: torch.zeros_like(v) for k, v in delta.items()},)
+            return out + (tree_map(torch.zeros_like, delta),)
         if self.wire_format in CSR_FORMATS:
             zero = torch.zeros_like(flat)[None]
             out = self.csr_core(flat[None], zero,

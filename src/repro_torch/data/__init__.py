@@ -6,3 +6,4 @@ from repro_torch.data.synthetic_cicids import (  # noqa: F401
     make_fleet_dataset,
     shannon_entropy,
 )
+from repro_torch.data.synthetic_lm import make_lm_dataset  # noqa: F401

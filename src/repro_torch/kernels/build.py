@@ -33,6 +33,10 @@ SIGNATURES = {
                                 (_P, _P, _P, _I, _I, _F, _P)),
     "masked_pseudo_ce_bwd_launch": ("masked_pseudo_ce",
                                     (_P, _P, _P, _P, _I, _I, _P)),
+    "masked_pseudo_ce_wide_launch": ("masked_pseudo_ce",
+                                     (_P, _P, _P, _I, _I, _F, _P)),
+    "masked_pseudo_ce_wide_bwd_launch": ("masked_pseudo_ce",
+                                         (_P, _P, _P, _P, _I, _I, _P)),
     "csr_compact_launch": ("csr_compact", (_P, _P, _P, _P, _P, _P, _P, _LL,
                                            _LL, _I, _I, _I, _P)),
     "staleness_agg_launch": ("staleness_agg", (_P, _P, _P, _I, _LL, _P)),

@@ -21,7 +21,8 @@ from repro_torch.kernels import ref
 LAUNCHES = {"masked_pseudo_ce": 0, "masked_pseudo_ce_bwd": 0,
             "csr_compact": 0, "staleness_agg": 0, "sparse_delta": 0,
             "csr_quant": 0, "flash_attention": 0}
-MPCE_BWD_MAX_C = 1024     # torch.softmax's persistent-kernel range
+MPCE_BWD_MAX_C = ref.MPCE_WIDE_C   # torch.softmax's persistent-kernel
+                                   # range; wider rows take the wide kernels
 CSR_TILE = 8192           # kTile in csrc/csr_compact.cu
 CSR_EPOCHS = 1 << 29      # epochs a flag word's bits 34-62 hold
 CSRQ_TILE = 2048          # kTile in csrc/csr_quant.cu
@@ -89,7 +90,8 @@ def _masked_pseudo_ce_fwd(logits, threshold):
     loss = torch.empty(n, dtype=torch.float32, device=logits.device)
     mask = torch.empty(n, dtype=torch.float32, device=logits.device)
     if n:
-        _launch("masked_pseudo_ce_launch", logits.data_ptr(),
+        _launch("masked_pseudo_ce_wide_launch" if c > MPCE_BWD_MAX_C
+                else "masked_pseudo_ce_launch", logits.data_ptr(),
                 loss.data_ptr(), mask.data_ptr(), n, c,
                 ref.log_threshold(threshold), _stream(logits))
         _counted("masked_pseudo_ce", n, c)
@@ -117,7 +119,10 @@ class _MaskedPseudoCE(torch.autograd.Function):
 def masked_pseudo_ce(logits, threshold):
     """Eq. 5 (log-space mask): logits (N, C) f32 -> (loss (N,), mask (N,)).
     Differentiable in ``logits``; the backward is
-    ``masked_pseudo_ce_grad``."""
+    ``masked_pseudo_ce_grad``. Above ``MPCE_BWD_MAX_C`` classes both
+    directions launch the one-block-a-row kernels, whose bits are the
+    float64-summed plain versions'; their launches count under the same
+    names, at their own (rows, C) in ``LAUNCHES_BY_SHAPE``."""
     return _MaskedPseudoCE.apply(logits.contiguous(), threshold)
 
 
@@ -136,12 +141,10 @@ def masked_pseudo_ce_grad(logits, mask, g):
                          f"mask {tuple(mask.shape)}, g {tuple(g.shape)}")
     if not _same_device(logits, mask, g):
         return ref.masked_pseudo_ce_grad(logits, mask, g)
-    if c > MPCE_BWD_MAX_C:
-        raise ValueError(f"the backward kernel takes at most "
-                         f"{MPCE_BWD_MAX_C} classes, got {c}")
     grad = torch.empty_like(logits)
     if n and c:
-        _launch("masked_pseudo_ce_bwd_launch", logits.data_ptr(),
+        _launch("masked_pseudo_ce_wide_bwd_launch" if c > MPCE_BWD_MAX_C
+                else "masked_pseudo_ce_bwd_launch", logits.data_ptr(),
                 mask.data_ptr(), g.data_ptr(), grad.data_ptr(), n, c,
                 _stream(logits))
         _counted("masked_pseudo_ce_bwd", n, c)

@@ -20,6 +20,22 @@ def log_threshold(threshold):
     return float(torch.log(torch.tensor(threshold, dtype=torch.float32)))
 
 
+MPCE_WIDE_C = 1024        # above this width the exp sums go in float64
+
+
+def _exp_sum(x, m):
+    """exp(x - m) per element in float32, and its row sums: in float32 up
+    to ``MPCE_WIDE_C`` classes, as torch.softmax sums there; above it in
+    float64, rounded to float32 once, so that the bits do not depend on
+    the order of the additions (a vocabulary-wide kernel adds in its own
+    order and gives the same float32 sum, unless the float64 one sits on
+    a float32 rounding boundary)."""
+    e = torch.exp(x - m[:, None])
+    if x.shape[1] <= MPCE_WIDE_C:
+        return e, e.sum(dim=1)
+    return e, e.to(torch.float64).sum(dim=1).to(torch.float32)
+
+
 def masked_pseudo_ce_ref(logits, threshold):
     """Paper Eq. 5 in log space, the TPU kernel's form
     (``repro/kernels/masked_pseudo_ce.py:23-30``):
@@ -29,11 +45,12 @@ def masked_pseudo_ce_ref(logits, threshold):
 
     The reference's own jnp oracle compares ``exp(max_logp) >= theta``
     instead; rows at the threshold can fall either way between the two.
-    logits: (N, C). Returns (loss (N,), mask (N,)) in float32.
+    logits: (N, C). Returns (loss (N,), mask (N,)) in float32. Above
+    ``MPCE_WIDE_C`` classes the sum goes in float64 (``_exp_sum``).
     """
     x = logits.to(torch.float32)
     m = x.max(dim=1).values
-    lse = m + torch.log(torch.exp(x - m[:, None]).sum(dim=1))
+    lse = m + torch.log(_exp_sum(x, m)[1])
     max_logp = m - lse
     mask = (max_logp >= log_threshold(threshold)).to(torch.float32)
     return -mask * max_logp, mask
@@ -41,9 +58,16 @@ def masked_pseudo_ce_ref(logits, threshold):
 
 def masked_pseudo_ce_grad(logits, mask, g):
     """Backward of Eq. 5 (``repro/kernels/ops.py:51-58``):
-    ``(softmax - onehot(argmax)) * mask * g``, ties to the first index."""
+    ``(softmax - onehot(argmax)) * mask * g``, ties to the first index.
+    Up to ``MPCE_WIDE_C`` classes the softmax is torch.softmax; above it
+    ``exp(x - m) / s`` by IEEE division, with the float64-summed ``s`` of
+    ``_exp_sum``."""
     x = logits.to(torch.float32)
-    p = torch.softmax(x, dim=1)
+    if x.shape[1] <= MPCE_WIDE_C:
+        p = torch.softmax(x, dim=1)
+    else:
+        e, s = _exp_sum(x, x.max(dim=1).values)
+        p = e / s[:, None]
     onehot = torch.nn.functional.one_hot(
         torch.argmax(x, dim=1), x.shape[1]).to(torch.float32)
     return ((p - onehot) * (mask * g)[:, None]).to(logits.dtype)

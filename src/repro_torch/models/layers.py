@@ -37,10 +37,16 @@ def pdtype(cfg):
     return DTYPES[cfg.param_dtype]
 
 
+def gen_device(gen):
+    """``gen``'s device; no generator (``gen=None``) builds on the meta
+    device: shapes and dtypes only, for a model's template."""
+    return torch.device("meta") if gen is None else gen.device
+
+
 def _dense_init(gen, shape, dtype, scale=None):
     fan_in = shape[0] if len(shape) > 1 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    return (torch.randn(shape, generator=gen, device=gen.device) * scale
+    return (torch.randn(shape, generator=gen, device=gen_device(gen)) * scale
             ).to(dtype)
 
 
@@ -49,7 +55,8 @@ def _dense_init(gen, shape, dtype, scale=None):
 # ---------------------------------------------------------------------------
 def init_rmsnorm(cfg, gen, dim=None):
     dim = dim or cfg.d_model
-    return {"scale": torch.ones((dim,), dtype=pdtype(cfg), device=gen.device)}
+    return {"scale": torch.ones((dim,), dtype=pdtype(cfg),
+                                device=gen_device(gen))}
 
 
 def rmsnorm(cfg, params, x):
@@ -87,7 +94,7 @@ def apply_rope(cfg, x, positions, dim=None):
 def init_attention(cfg, gen):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    pdt, dev = pdtype(cfg), gen.device
+    pdt, dev = pdtype(cfg), gen_device(gen)
     p = {
         "wq": _dense_init(gen, (d, nq * hd), pdt),
         "wk": _dense_init(gen, (d, nkv * hd), pdt),

@@ -84,14 +84,16 @@ def _index(tree, r):
 def init_params(cfg, gen):
     """Random parameters from the ``torch.Generator`` ``gen``, on its
     device, with the reference's shapes, scales and dtypes (not its
-    numbers: its PRNG is JAX's)."""
+    numbers: its PRNG is JAX's). ``gen=None``: the same tree on the meta
+    device (``param_template``)."""
     _check_model(cfg)
     sigs = cfg.layer_pattern()
     prefix_len, period, reps = scan_plan(cfg)
     d = cfg.d_model
     params = {
         "embed": (torch.randn((cfg.vocab_size, d), generator=gen,
-                              device=gen.device) * 0.02).to(L.pdtype(cfg)),
+                              device=L.gen_device(gen)) * 0.02
+                  ).to(L.pdtype(cfg)),
         "final_norm": L.init_rmsnorm(cfg, gen),
     }
     if not cfg.tie_embeddings:
@@ -105,6 +107,14 @@ def init_params(cfg, gen):
                                 for _ in range(reps)])
             for j in range(period)}
     return params
+
+
+@functools.lru_cache(maxsize=None)
+def param_template(cfg):
+    """The parameter tree of ``cfg`` as meta tensors: the shapes and
+    dtypes, no memory (the reference's ``jax.eval_shape`` of
+    ``init_params``)."""
+    return init_params(cfg, None)
 
 
 def compute_params(cfg, params):

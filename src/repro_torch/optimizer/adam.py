@@ -1,4 +1,5 @@
-"""Adam with the paper's L1 regularisation (§IV-F), on parameter dicts.
+"""Adam with the paper's L1 regularisation (§IV-F), on parameter trees
+(the CNN's flat dict, or a language model's nested dicts and lists).
 
 Port of ``repro/optimizer/adam.py:16-49``, written out rather than taken
 from ``torch.optim.Adam``: the L1 sign subgradient joins the gradient,
@@ -10,13 +11,16 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.tree import leaves as tree_leaves
+from repro_torch.tree import from_leaves, tree_map
+
 
 def adam_init(params):
+    lv = tree_leaves(params)
     return {
-        "m": {k: torch.zeros_like(p) for k, p in params.items()},
-        "v": {k: torch.zeros_like(p) for k, p in params.items()},
-        "t": torch.zeros((), dtype=torch.int32,
-                         device=next(iter(params.values())).device),
+        "m": tree_map(torch.zeros_like, params),
+        "v": tree_map(torch.zeros_like, params),
+        "t": torch.zeros((), dtype=torch.int32, device=lv[0].device),
     }
 
 
@@ -27,17 +31,23 @@ def adam_update(grads, opt_state, params, *, lr, b1=0.9, b2=0.999, eps=1e-8,
     tf = t.to(torch.float32)
     c1 = 1 - b1 ** tf
     c2 = 1 - b2 ** tf
-    new_p, new_m, new_v = {}, {}, {}
-    for k, p in params.items():
-        g = grads[k].to(torch.float32)
+
+    new_p, new_m, new_v = [], [], []
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(opt_state["m"]),
+                          tree_leaves(opt_state["v"])):
+        g = g.to(torch.float32)
         if l1:
             g = g + l1 * torch.sign(p)
-        m = b1 * opt_state["m"][k] + (1 - b1) * g
-        v = b2 * opt_state["v"][k] + (1 - b2) * g * g
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
         step = (m / c1) / (torch.sqrt(v / c2) + eps)
-        new_p[k] = p - lr * step
-        new_m[k], new_v[k] = m, v
-    return new_p, {"m": new_m, "v": new_v, "t": t}
+        new_p.append(p - lr * step)
+        new_m.append(m)
+        new_v.append(v)
+    return from_leaves(params, new_p), {"m": from_leaves(params, new_m),
+                                        "v": from_leaves(params, new_v),
+                                        "t": t}
 
 
 def adam_init_rows(flat):

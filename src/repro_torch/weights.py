@@ -9,17 +9,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_map
+
 
 def params_from_numpy(tree, device):
-    """{name: array} -> {name: float32 tensor on ``device``}."""
-    return {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
-            for k, v in tree.items()}
+    """A tree of arrays ({name: array}, or nested dicts and lists) -> the
+    same tree of float32 tensors on ``device``."""
+    return tree_map(lambda v: torch.tensor(np.asarray(v), dtype=torch.float32,
+                                           device=device), tree)
 
 
 def params_to_numpy(params):
-    """{name: tensor} -> {name: float32 numpy array on the host}."""
-    return {k: v.detach().to("cpu", torch.float32).numpy()
-            for k, v in params.items()}
+    """A tree of tensors -> the same tree of float32 numpy arrays on the
+    host."""
+    return tree_map(lambda v: v.detach().to("cpu", torch.float32).numpy(),
+                    params)
 
 
 def tree_from_numpy(tree, device):

@@ -6,9 +6,9 @@ the tolerances of tests/test_torch_faults.py, tests/test_torch_fleet_ckpt.py
 and ``chip_smoke.py`` phase 5f.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/reference_spread.py \\
-        --cell chaos|test|5f [--wire csr|csr_q|dense_masked] [--ef] \\
-        [--rounds R] [--no-faults] [--chunk] [--port batched,sequential] \\
-        [--messages]
+        --cell chaos|test|5f|5 [--wire csr|csr_q|dense_masked] [--ef] \\
+        [--rounds R] [--no-faults] [--chunk | --chunk-full] [--full] \\
+        [--per-round] [--shares] [--port batched,sequential] [--messages]
 
 Cells: ``chaos`` is tests/test_chaos.py's acceptance run (50 rounds,
 scale 0.0015, ``REFERENCE_CHURN``, EF, quorum floor 1); ``test`` the fault
@@ -31,6 +31,9 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = dict(conv_filters=(8, 8), hidden=16, dropout=0.0)
+FULL = dict(dropout=0.0)      # the paper CNN's widths (configs/feds3a_cnn.py)
+CHUNK_FULL = dict(chunk_size=1_000_000,
+                  layer_keep_frac={"conv": 0.5, "out": 0.5})
 
 
 def _cell(name, rounds):
@@ -43,9 +46,63 @@ def _cell(name, rounds):
         return dict(scale=0.0015, seed=0, rounds=rounds or 8, cnn=SMALL,
                     corrupt=0.05, kw=dict(round_deadline=700.0,
                                           quorum_floor=2))
+    if name == "5":
+        return dict(scale=0.02, seed=None, rounds=rounds or 3, cnn=SMALL,
+                    corrupt=0.0,
+                    kw={})
     return dict(scale=0.02, seed=None, rounds=rounds or 7,
                 cnn=dict(conv_filters=(8, 8), hidden=16), corrupt=0.05,
                 kw=dict(round_deadline=700.0, quorum_floor=2))
+
+
+def _train(tr, rounds, per_round, what):
+    """``tr.train(rounds)``, one round a call when ``per_round`` (the same
+    run: ``train`` evaluates after its last round and changes nothing),
+    printing the accuracy and ACO after each."""
+    if not per_round:
+        return tr.train(rounds)
+    for r in range(rounds):
+        out = tr.train(1)
+        print(f"    {what} round {r}: accuracy "
+              f"{out['metrics']['accuracy']:.6f}, ACO {out['aco']:.6f}, "
+              f"participants {tr.logs[-1].participants}, rejoined "
+              f"{tr.logs[-1].rejoined}, resynced {tr.logs[-1].resynced}",
+              flush=True)
+    return out
+
+
+def _tap_reference_chunks(seen):
+    """Record every chunk encode of the reference's chunked bodies as
+    (chunk start, rows, stored sum) through a host callback from inside
+    its jits."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core.sparse_comm import SparseComm
+    one = SparseComm._chunk_encode_one
+
+    def tapped(self, delta_c, plan_c):
+        pay, stored, dec = one(self, delta_c, plan_c)
+        s, rows = plan_c["s"], delta_c.shape[0]
+        jax.debug.callback(
+            lambda st: seen.append((s, rows, int(np.asarray(st)))),
+            jnp.sum(stored))
+        return pay, stored, dec
+    SparseComm._chunk_encode_one = tapped
+
+
+def _reference_shares(seen, plan):
+    """Per chunk of ``plan``: the stored share over the recorded uploads
+    (rows > 1) and chain encodes (one row)."""
+    out = {}
+    for what, keep in (("upload", lambda r: r > 1), ("chain",
+                                                      lambda r: r == 1)):
+        got = []
+        for p in plan:
+            hits = [(r, st) for s, r, st in seen if s == p["s"] and keep(r)]
+            rows = sum(r for r, _ in hits)
+            got.append(sum(st for _, st in hits) / max(rows * p["nc"], 1))
+        out[what] = got
+    return out
 
 
 def _diff(a, b):
@@ -55,7 +112,7 @@ def _diff(a, b):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cell", choices=("chaos", "test", "5f"),
+    ap.add_argument("--cell", choices=("chaos", "test", "5f", "5"),
                     default="test")
     ap.add_argument("--wire", default="csr")
     ap.add_argument("--ef", action="store_true")
@@ -63,6 +120,12 @@ def main():
     ap.add_argument("--no-faults", action="store_true")
     ap.add_argument("--chunk", action="store_true",
                     help="chunk_size=700, conv and out kept at 0.5")
+    ap.add_argument("--chunk-full", action="store_true",
+                    help="chunk_size=1_000_000, conv and out kept at 0.5")
+    ap.add_argument("--full", action="store_true",
+                    help="the paper CNN at full width, dropout 0")
+    ap.add_argument("--per-round", action="store_true")
+    ap.add_argument("--shares", action="store_true")
     ap.add_argument("--port", default="",
                     help="port engines to hold against the reference")
     ap.add_argument("--messages", action="store_true")
@@ -81,29 +144,45 @@ def main():
     from repro_torch.data import make_dataset
 
     cell = _cell(args.cell, args.rounds)
+    if args.full:
+        cell["cnn"] = FULL
     seed = {} if cell["seed"] is None else {"seed": cell["seed"]}
     kw = dict(wire_format=args.wire,
               error_feedback=args.ef or cell["kw"].get("error_feedback",
                                                        False))
     if args.chunk:
         kw.update(chunk_size=700, layer_keep_frac={"conv": 0.5, "out": 0.5})
-    if not args.no_faults:
+    if args.chunk_full:
+        kw.update(CHUNK_FULL)
+    faults = not args.no_faults and args.cell != "5"
+    if faults:
         kw.update(round_deadline=cell["kw"]["round_deadline"],
                   quorum_floor=cell["kw"]["quorum_floor"])
-    traffic = {} if args.no_faults else {"traffic": dataclasses.replace(
+    traffic = {} if not faults else {"traffic": dataclasses.replace(
         J_CHURN, corrupt_prob=cell["corrupt"])}
-    p_traffic = {} if args.no_faults else {"traffic": dataclasses.replace(
+    p_traffic = {} if not faults else {"traffic": dataclasses.replace(
         REFERENCE_CHURN, corrupt_prob=cell["corrupt"])}
+    seen = []
+    if args.shares:
+        _tap_reference_chunks(seen)
     runs = {}
     for engine in ("sequential", "batched"):
         tr = JTrainer(j_make_dataset("basic", scale=cell["scale"], **seed),
                       JConfig(rounds=cell["rounds"], cnn=JCNN(**cell["cnn"]),
                               seed=0, engine=engine, **traffic, **kw))
-        runs[engine] = (tr, tr.train())
+        seen.clear()
+        runs[engine] = (tr, _train(tr, cell["rounds"], args.per_round,
+                                   f"reference {engine}"))
+        if args.shares and tr.chunked:
+            plan = tr.comm.chunk_plan()
+            for what, got in _reference_shares(seen, plan).items():
+                print(f"  reference {engine} {what} stored share by chunk "
+                      f"(width): " + ", ".join(
+                          f"{g:.6f} ({p['nc']})" for g, p in zip(got, plan)))
     ref, want = runs["sequential"]
     m, a = _diff(runs["batched"][1], want)
     print(f"{args.cell} {args.wire} ef={kw['error_feedback']} faults="
-          f"{not args.no_faults} rounds={cell['rounds']}: reference "
+          f"{faults} full={args.full} rounds={cell['rounds']}: reference "
           f"batched - sequential: max |metric| {m:.3g}, ACO {a:.3g} "
           f"(sequential ACO {want['aco']:.6f}, fleet {want['fleet']})")
     _, k = jax.random.split(jax.random.PRNGKey(0))
@@ -115,11 +194,17 @@ def main():
             FedS3AConfig(rounds=cell["rounds"], cnn=CNNConfig(**cell["cnn"]),
                          seed=0, device="cpu", engine=engine, **p_traffic,
                          **kw), init_params=init)
-        got = tr.train()
+        got = _train(tr, cell["rounds"], args.per_round, f"port {engine}")
         m, a = _diff(got, want)
         print(f"  port {engine} - reference sequential: max |metric| "
-              f"{m:.3g}, ACO {a:.3g}; fleet equal "
-              f"{got['fleet'] == want['fleet']}")
+              f"{m:.3g}, ACO {a:.3g} (port ACO {got['aco']:.6f}); fleet "
+              f"equal {got['fleet'] == want['fleet']}")
+        if args.shares and tr.chunked:
+            plan = tr.comm.chunk_plan()
+            for what, got in tr.comm.chunk_stored_share().items():
+                print(f"  port {engine} {what} stored share by chunk "
+                      f"(width): " + ", ".join(
+                          f"{g:.6f} ({p['nc']})" for g, p in zip(got, plan)))
     if args.messages:
         _messages(cell, seed, kw, traffic, p_traffic, init, JTrainer, JConfig, JCNN, j_make_dataset, FedS3ATrainer,
                   FedS3AConfig, CNNConfig, make_dataset)

@@ -149,7 +149,7 @@ def test_backward_wrapper_checks_and_cpu_route():
         ops.masked_pseudo_ce_grad(x, torch.ones(3), torch.ones(4))
     with pytest.raises(TypeError):
         ops.masked_pseudo_ce_grad(x.double(), torch.ones(4), torch.ones(4))
-    # more classes than the kernel takes: the CPU runs the plain version
+    # wider than the narrow kernels: the CPU runs the plain version
     wide = torch.randn((4, ops.MPCE_BWD_MAX_C + 1))
     np.testing.assert_array_equal(
         ops.masked_pseudo_ce_grad(wide, torch.ones(4), torch.ones(4)),
