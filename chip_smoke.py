@@ -133,10 +133,30 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    one ``flash_attention`` launch per layer per call; the prefill's last
    logits with the kernel against the plain attention on the card, and a
    2-layer float32 model of the same width on the card against the CPU;
+6b. train qwen2-1.5b (``training/steps.py``, ``impl="flash"``, remat):
+   T0, the full width at 2 layers in float32 (B 2, S 1024: a 2 x 2 grid
+   of 512-wide tiles), ``lm_loss`` and its gradients with
+   ``impl="flash"`` against ``impl="ref"`` (loss 1e-5 relative, each
+   leaf's gradient 1e-4 in relative L2 norm), and one train step of 2
+   microbatches against 1 (loss 1e-6 relative, Adam's first moment, 0.1
+   x the gradient, 1e-4 per leaf in relative L2 norm, parameters within 2
+   lr and at most 0.1% of them past 1e-6); T0c,
+   ``tests/test_torch_train_step.py``'s reduced model, 2 flash steps of 2
+   microbatches, card against CPU (losses 1e-5; parameters atol 1e-4 /
+   rtol 1e-3 but for Adam sign flips within 2 lr a step, at most 0.1% of
+   them); T1, the whole
+   model (all 28 layers, N = 1,543,714,304, bf16 compute) through
+   ``launch/train.py``'s ``run_lm(reduced=False)``, batch 8 x 2048 in 4
+   microbatches, a warm-up step and 3 timed ones (seconds, tokens/s,
+   loss, model-FLOP share of the bf16 peak; finite losses, every leaf
+   moved, peak memory under 75 GB); F1, ``python -m
+   repro_torch.launch.train fl`` (phase 5's batched + csr setting: its
+   checkpoint's parameters must have that run's digest) and ``lm`` as
+   subprocesses, the checkpoint under a temporary directory it removes;
 7. print one ``{"kernels": [...], "paths": ..., "serve": ...,
    "baselines": ..., "baselines_card_vs_cpu": ..., "chunked_card_vs_cpu":
-   ..., "fleet": ..., "faults": ..., "dense_store": ..., "lm_path":
-   ...}`` line, then the
+   ..., "fleet": ..., "faults": ..., "dense_store": ..., "lm_path": ...,
+   "lm_train": ...}`` line, then the
    result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -1305,8 +1325,13 @@ def path_name(engine, wire, ef, store="resident", chunk=None):
 
 def params_digest(port, tr):
     """SHA-256 of the global parameters' bytes, in name order."""
+    return tree_digest(port, tr.global_params)
+
+
+def tree_digest(port, tree):
+    """``params_digest`` of a {name: tensor} parameter tree."""
     h = hashlib.sha256()
-    for name, v in sorted(port.params_to_numpy(tr.global_params).items()):
+    for name, v in sorted(port.params_to_numpy(tree).items()):
         h.update(name.encode())
         h.update(v.tobytes())
     return h.hexdigest()
@@ -3263,12 +3288,371 @@ def _profile_serving(torch, port, cfg, params, toks):
     return out
 
 
+# -- phase 6b: LM training at full width and full depth --------------------
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_PARAMS = 1_543_714_304  # leaves of the full model: param_count() +
+#                               the QKV biases and the final norm
+T0_B, T0_S, T0_LAYERS = 2, 1024, 2   # qblk = kblk = 512: a 2 x 2 tile grid
+T0_LOSS_REL = 1e-5            # flash against ref, float32
+T0_GRAD_REL = 1e-4            # per leaf, relative L2 norm
+T0_MB_LOSS_REL = 1e-6         # 2 microbatches against 1
+PAST_SHARE = 1e-3             # parameters past atol / rtol (Adam sign flips)
+T0_LR = 3e-4
+# T0c: tests/test_torch_train_step.py's shape on the card and on the CPU
+T0C_MODEL = dict(num_layers=1, d_model=128, d_ff=256, num_heads=2,
+                 num_kv_heads=1, dtype="float32")
+T0C_B, T0C_S, T0C_BLK, T0C_LR, T0C_STEPS = 4, 32, 16, 1e-3, 2
+T0C_LOSS_REL, T0C_ATOL, T0C_RTOL = 1e-5, 1e-4, 1e-3
+# T1: the full model through launch/train.py's run_lm (impl="flash")
+T1_RUN = dict(batch=8, seq=2048, microbatches=4, lr=3e-4, steps=4, seed=0)
+T1_PEAK = 75 * 10**9
+# F1: the CLI as subprocesses, the fl run in phase 5's batched + csr setting
+F1_SCALE = 0.02
+F1_FL = ["fl", "--rounds", "3", "--scale", str(F1_SCALE), "--ckpt-every",
+         "1"]
+F1_LM = ["lm", "--steps", "2"]
+
+
+def _grad_rels(torch, a, b):
+    return [float(torch.linalg.vector_norm((x - y).double())
+                  / torch.linalg.vector_norm(y.double()).clamp_min(1e-30))
+            for x, y in zip(a, b)]
+
+
+def _param_gap(torch, port, new, ref, lr_steps, atol, rtol):
+    """(elements past atol / rtol, largest |diff| among them, max |diff|)
+    of two parameter trees; fails where an element past atol / rtol is
+    more than ``lr_steps`` (2 x lr x steps: Adam steps that flipped sign)
+    apart, or where more than PAST_SHARE of the elements are past."""
+    past, worst, top, n = 0, 0.0, 0.0, 0
+    for a, b in zip(port.tree_leaves(new), port.tree_leaves(ref)):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        d = (a - b).abs()
+        off = d > atol + rtol * b.abs()
+        past += int(off.sum())
+        n += d.numel()
+        if off.any():
+            worst = max(worst, float(d[off].max()))
+        top = max(top, float(d.max()))
+    check(worst <= lr_steps, f"parameters {worst} apart past atol / rtol, "
+          f"more than Adam sign flips allow ({lr_steps})")
+    check(past <= PAST_SHARE * n, f"{past} of {n} parameters past atol "
+          f"{atol:g} / rtol {rtol:g}, more than {PAST_SHARE:g} of them")
+    return past, worst, top
+
+
+def train_t0(torch, port, dev="cuda"):
+    """T0: the full-width model at 2 layers in float32 on the card:
+    lm_loss and its gradients with impl="flash" against impl="ref", then
+    one train step with 2 microbatches against 1."""
+    cfg = dataclasses.replace(port.get_config(TRAIN_ARCH),
+                              num_layers=T0_LAYERS, dtype="float32")
+    blocks = port.layers.FLASH_BLOCKS
+    check(T0_S % blocks["qblk"] == 0 and T0_S // blocks["qblk"] == 2,
+          f"T0 expects a 2 x 2 grid of tiles, blocks {blocks}")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params = port.lm.init_params(cfg, gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (T0_B, T0_S),
+                                     generator=gen, device=dev)}
+    out = {}
+    for impl in ("flash", "ref", "flash", "ref"):   # the second pair warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = port.value_and_grad(
+            lambda p: port.lm_loss(cfg, p, batch, impl=impl), params)
+        torch.cuda.synchronize()
+        secs = out.get(impl, (0, 0, []))[2] + [time.perf_counter() - t0]
+        out[impl] = (float(loss), grads, secs)
+    lf, lr_ = out["flash"][0], out["ref"][0]
+    rels = _grad_rels(torch, out["flash"][1], out["ref"][1])
+    names = [port.path_name(p) for p, _ in
+             port.leaves_with_path(params)]
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    log(f"  T0 ({cfg.d_model} wide, {T0_LAYERS} layers, V {cfg.vocab_size}, "
+        f"float32, TF32 {torch.backends.cuda.matmul.allow_tf32}; B {T0_B}, "
+        f"S {T0_S}, blocks {blocks['qblk']} x {blocks['kblk']}): loss flash "
+        f"{lf:.7f}, ref {lr_:.7f} (rel {abs(lf - lr_) / abs(lr_):.3g}, bound "
+        f"{T0_LOSS_REL:g}); gradients max rel L2 {rels[worst]:.3g} "
+        f"({names[worst]}, bound {T0_GRAD_REL:g}); loss and gradients "
+        f"(first, warm call) flash {out['flash'][2][0]:.3f}, "
+        f"{out['flash'][2][1]:.3f} s, ref {out['ref'][2][0]:.3f}, "
+        f"{out['ref'][2][1]:.3f} s")
+    check(abs(lf - lr_) <= T0_LOSS_REL * abs(lr_),
+          f"T0: flash loss {lf} against ref {lr_}")
+    check(max(rels) <= T0_GRAD_REL, f"T0: gradients {rels[worst]} apart "
+          f"at {names[worst]}")
+    out_s = {impl: out[impl][2] for impl in out}
+    del out
+    opt = port.adam_init(params)
+    res = {}
+    for mb in (1, 2):
+        step = port.make_train_step(cfg, lr=T0_LR, num_microbatches=mb,
+                                    impl="flash")
+        res[mb] = step(params, opt, batch)
+    l1, l2 = float(res[1][2]), float(res[2][2])
+    # Adam's first moment after one step is 0.1 x the gradient: it holds
+    # the microbatched sum, which the parameters' sign steps cannot show
+    mrels = _grad_rels(torch, port.tree_leaves(res[2][1]["m"]),
+                       port.tree_leaves(res[1][1]["m"]))
+    mworst = max(range(len(mrels)), key=mrels.__getitem__)
+    log(f"  T0 train step, 2 microbatches vs 1: loss {l2:.7f} vs {l1:.7f} "
+        f"(rel {abs(l2 - l1) / abs(l1):.3g}, bound {T0_MB_LOSS_REL:g}); "
+        f"Adam's m (0.1 x gradient) max rel L2 {mrels[mworst]:.3g} "
+        f"({names[mworst]}, bound {T0_GRAD_REL:g})")
+    check(abs(l2 - l1) <= T0_MB_LOSS_REL * abs(l1),
+          f"T0: microbatched loss {l2} against {l1}")
+    check(max(mrels) <= T0_GRAD_REL, f"T0: microbatched gradients "
+          f"{mrels[mworst]} apart at {names[mworst]}")
+    past, _, top = _param_gap(torch, port, res[2][0], res[1][0],
+                              2 * T0_LR, 1e-6, 0.0)
+    log(f"  T0 train step parameters: max |diff| {top:.3g} (bound 2 lr = "
+        f"{2 * T0_LR:g}), {past} elements past 1e-6 (bound "
+        f"{PAST_SHARE:g} of them)")
+    return {"loss_flash": lf, "loss_ref": lr_, "grad_rel_max": max(rels),
+            "s_flash": out_s["flash"], "s_ref": out_s["ref"],
+            "grad_rel_worst_leaf": names[worst], "mb2_loss": l2,
+            "mb1_loss": l1, "mb_m_rel_max": max(mrels),
+            "mb_param_max_abs_diff": top,
+            "mb_params_past_1e-6": past}
+
+
+def train_t0c(torch, np, port, dev="cuda"):
+    """T0c: tests/test_torch_train_step.py's reduced model, T0C_STEPS steps
+    of impl="flash" with 2 microbatches, on the card against the CPU from
+    the same parameters and tokens."""
+    cfg = port.get_config(TRAIN_ARCH).reduced(**T0C_MODEL)
+    p_cpu = port.lm.init_params(cfg, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(7)
+    toks = [rng.integers(0, cfg.vocab_size, (T0C_B, T0C_S))
+            for _ in range(T0C_STEPS)]
+    blocks = port.layers.FLASH_BLOCKS
+    saved = dict(blocks)
+    blocks.update(qblk=T0C_BLK, kblk=T0C_BLK)
+    try:
+        runs = {}
+        for where in (dev, "cpu"):
+            p = port.tree_from_numpy(port.tree_to_numpy(p_cpu), where)
+            opt = port.adam_init(p)
+            step = port.make_train_step(cfg, lr=T0C_LR, num_microbatches=2,
+                                        impl="flash")
+            losses = []
+            for t in toks:
+                p, opt, loss = step(p, opt, {"tokens": torch.as_tensor(
+                    t, device=where)})
+                losses.append(float(loss))
+            runs[where] = (p, losses)
+    finally:
+        blocks.clear()
+        blocks.update(saved)
+    lc, lh = runs[dev][1], runs["cpu"][1]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    past, worst, top = _param_gap(
+        torch, port, runs[dev][0], runs["cpu"][0],
+        2 * T0C_LR * T0C_STEPS, T0C_ATOL, T0C_RTOL)
+    log(f"  T0c (reduced, d {cfg.d_model}, V {cfg.vocab_size}, float32, "
+        f"{T0C_STEPS} flash steps of 2 microbatches) card vs CPU: losses "
+        f"{lc} vs {lh} (max rel {rel:.3g}, bound {T0C_LOSS_REL:g}); "
+        f"parameters max |diff| {top:.3g}, {past} past atol {T0C_ATOL:g} / "
+        f"rtol {T0C_RTOL:g} (Adam sign flips, bound "
+        f"{2 * T0C_LR * T0C_STEPS:g}, largest {worst:.3g})")
+    check(rel <= T0C_LOSS_REL, f"T0c: card losses {lc} against CPU {lh}")
+    return {"losses_card": lc, "losses_cpu": lh, "loss_rel_max": rel,
+            "param_max_abs_diff": top, "params_past_atol_rtol": past}
+
+
+def train_t1(torch, port, smi, dev="cuda"):
+    """T1: qwen2-1.5b at every width and all 28 layers (bf16 compute,
+    float32 parameters) through ``run_lm(reduced=False)``: a warm-up step,
+    then T1_RUN["steps"] - 1 timed ones. Microbatches 8 if 4 run out of
+    memory."""
+    cfg = port.get_config(TRAIN_ARCH)
+    res = None
+    for mb in (T1_RUN["microbatches"], 2 * T1_RUN["microbatches"]):
+        args = SimpleNamespace(arch=TRAIN_ARCH, reduced=False, device=dev,
+                               **dict(T1_RUN, microbatches=mb))
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            res = port.run_lm(args)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"  T1 with {mb} microbatches ran out of memory ({e}); "
+                f"again with {2 * mb}")
+            res = None
+            torch.cuda.empty_cache()
+    check(res is not None, "T1: out of memory at 8 microbatches too")
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(t.numel() for t in port.tree_leaves(res["params"]))
+    check(res["cfg"].num_layers == 28 and n == TRAIN_PARAMS,
+          f"T1 trained {res['cfg'].num_layers} layers, {n} parameters")
+    B, S, L = args.batch, args.seq, cfg.num_layers
+    tokens = B * S
+    flops = 6 * n * tokens + 12 * L * B * S * S * cfg.d_model
+    steps = []
+    for i, (sec, loss) in enumerate(zip(res["seconds"], res["losses"])):
+        share = flops / sec / BF16_OPS_PER_S
+        steps.append({"step": i, "warm_up": i == 0, "s": sec,
+                      "tokens_per_s": tokens / sec, "loss": loss,
+                      "model_flop_share": share})
+        log(f"  T1 step {i}{' (warm-up)' if i == 0 else ''} ({smi}): "
+            f"{sec:.4f} s, {tokens / sec:.1f} tokens/s, loss {loss:.6f}, "
+            f"{100 * share:.2f}% of the bf16 peak's model FLOPs "
+            f"({flops:.4g} a step)")
+    check(all(math.isfinite(x) for x in res["losses"]),
+          f"T1: losses {res['losses']}")
+    check(peak < T1_PEAK, f"T1: peak device memory {peak} B")
+    # the parameters moved: every leaf differs from its initial draw
+    init = port.lm.init_params(
+        res["cfg"], torch.Generator(device=dev).manual_seed(args.seed))
+    same = [port.path_name(p) for (p, a), b in
+            zip(port.leaves_with_path(init), port.tree_leaves(res["params"]))
+            if torch.equal(a, b)]
+    check(not same, f"T1: leaves unchanged by training: {same}")
+    del init, res
+    timed = steps[1:]
+    mean_s = statistics.mean(s["s"] for s in timed)
+    log(f"  T1 ({smi}): {n} parameters, {L} layers, batch {B} x {S}, "
+        f"{mb} microbatches, lr {args.lr}: timed steps {mean_s:.4f} s on "
+        f"average ({tokens / mean_s:.1f} tokens/s), peak device memory "
+        f"{peak} B ({peak / 1e9:.2f} GB; bound {T1_PEAK / 1e9:.0f} GB)")
+    return {"params": n, "layers": L, "batch": B, "seq": S,
+            "microbatches": mb, "lr": args.lr, "steps": steps,
+            "flops_per_step": flops, "mean_timed_s": mean_s,
+            "peak_mem_bytes": peak, "gpu": smi}
+
+
+def train_cli(torch, np, port, batched_csr, dev="cuda"):
+    """F1: ``python -m repro_torch.launch.train`` in both modes as
+    subprocesses on the card; the fl checkpoint loaded into a fresh
+    trainer's ``fl_checkpoint_tree`` and held against phase 5's batched +
+    csr run, whose configuration the CLI's must equal."""
+    cli_cfg = port.FedS3AConfig(rounds=3, C=0.6, tau=2, seed=0, device=dev)
+    path5_cfg = port.FedS3AConfig(rounds=3, wire_format="csr",
+                                  error_feedback=False,
+                                  client_store="resident", device=dev)
+    same_cfg = dataclasses.asdict(cli_cfg) == dataclasses.asdict(path5_cfg)
+    log(f"  F1: the CLI's fl config equals phase 5's batched + csr: "
+        f"{same_cfg} (basic scenario, scale 0.02, seed 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    out = {}
+    try:
+        ckpt = os.path.join(tmp, "fl.msgpack")
+        runs = {}
+        for mode, argv in (("fl", F1_FL + ["--ckpt", ckpt]), ("lm", F1_LM)):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m",
+                                "repro_torch.launch.train", *argv,
+                                "--device", dev],
+                               cwd=ROOT, env=env, capture_output=True,
+                               text=True, timeout=300)
+            runs[mode] = r.stdout.strip().splitlines()
+            log(f"  F1 {mode} ({time.perf_counter() - t0:.1f} s, exit "
+                f"{r.returncode}): " + " | ".join(runs[mode]))
+            check(r.returncode == 0, f"F1 {mode} exited {r.returncode}: "
+                  f"{r.stderr[-3000:]}")
+        fresh = port.FedS3ATrainer(port.make_dataset("basic", scale=F1_SCALE),
+                                   cli_cfg)
+        # a fresh trainer has taken no round: its participation matrix has
+        # no rows yet, the checkpoint's one a round
+        like = dict(port.fl_checkpoint_tree(fresh),
+                    participation=np.zeros((cli_cfg.rounds, fresh.M)))
+        back = port.load_checkpoint(ckpt, like)
+        check(back["round"] == cli_cfg.rounds,
+              f"F1: checkpoint of round {back['round']}")
+        digest = tree_digest(port, back["global_params"])
+        final = runs["fl"][-1]
+        want = (f"final acc={batched_csr['accuracy']:.4f} "
+                f"aco={batched_csr['aco']:.2f}")
+        log(f"  F1 checkpoint: round {back['round']}, {os.path.getsize(ckpt)} "
+            f"B, global_params digest {digest[:16]} (phase 5 batched + csr "
+            f"{batched_csr['digest'][:16]}); CLI's last line {final!r} "
+            f"(phase 5 in its format: {want!r})")
+        if same_cfg:
+            check(digest == batched_csr["digest"],
+                  "F1: the CLI's parameters differ from phase 5's batched + "
+                  "csr run of the same configuration")
+            check(final == want, f"F1: CLI printed {final!r}, phase 5's "
+                  f"run gives {want!r}")
+        losses = [float(line.split("loss=")[1].split()[0])
+                  for line in runs["lm"] if line.startswith("step ")]
+        check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
+              f"F1 lm: losses {losses}")
+        out = {"same_config_as_phase5": same_cfg, "digest": digest,
+               "digest_equal": digest == batched_csr["digest"],
+               "fl_last_line": final, "lm_losses": losses,
+               "ckpt_bytes": os.path.getsize(ckpt)}
+        del fresh, like, back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not os.path.exists(tmp), f"F1: {tmp} left behind")
+    return out
+
+
+def lm_train(torch, np, port, smi, batched_csr):
+    """Phase 6b: T0, T0c, T1, F1 (see the module docstring)."""
+    t0 = time.perf_counter()
+    res = {"t0": train_t0(torch, port)}
+    torch.cuda.empty_cache()
+    res["t0c"] = train_t0c(torch, np, port)
+    torch.cuda.empty_cache()
+    res["t1"] = train_t1(torch, port, smi)
+    torch.cuda.empty_cache()
+    res["f1"] = train_cli(torch, np, port, batched_csr)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 6b took {res['seconds']:.1f} s")
+    return res
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
     if isinstance(tree, list):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
+
+
+def load_port():
+    """The entry points the phases drive, imported from ``src/``."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.configs.feds3a_cnn import CNNConfig
+    from repro_torch.core import REFERENCE_CHURN, ParamLayout, baselines
+    from repro_torch.core import fleet_ckpt
+    from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
+    from repro_torch.core.sparse_comm import flatten_tree
+    from repro_torch.data import (make_dataset, make_fleet_dataset,
+                                  make_lm_dataset)
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.train import fl_checkpoint_tree, run_lm
+    from repro_torch.models import layers, lm
+    from repro_torch.models.cnn import cnn_param_count, cnn_template, init_cnn
+    from repro_torch.optimizer import adam_init
+    from repro_torch.training.steps import (lm_loss, make_prefill_step,
+                                            make_serve_step, make_train_step,
+                                            value_and_grad)
+    from repro_torch.tree import leaves as tree_leaves
+    from repro_torch.tree import leaves_with_path, path_name
+    from repro_torch.weights import (params_to_numpy, tree_from_numpy,
+                                     tree_to_numpy)
+    return SimpleNamespace(
+        CNNConfig=CNNConfig, FedS3AConfig=FedS3AConfig,
+        FedS3ATrainer=FedS3ATrainer, make_dataset=make_dataset,
+        make_fleet_dataset=make_fleet_dataset, baselines=baselines,
+        cnn_param_count=cnn_param_count, init_cnn=init_cnn,
+        ParamLayout=ParamLayout, cnn_template=cnn_template,
+        params_to_numpy=params_to_numpy, get_config=get_config, lm=lm,
+        serve_batch=serve_batch, make_prefill_step=make_prefill_step,
+        make_serve_step=make_serve_step,
+        tree_from_numpy=tree_from_numpy, tree_to_numpy=tree_to_numpy,
+        REFERENCE_CHURN=REFERENCE_CHURN, fleet_ckpt=fleet_ckpt,
+        make_lm_dataset=make_lm_dataset, tree_leaves=tree_leaves,
+        flatten_tree=flatten_tree, layers=layers, lm_loss=lm_loss,
+        value_and_grad=value_and_grad, make_train_step=make_train_step,
+        adam_init=adam_init, run_lm=run_lm, load_checkpoint=load_checkpoint,
+        fl_checkpoint_tree=fl_checkpoint_tree,
+        leaves_with_path=leaves_with_path, path_name=path_name)
 
 
 def main():
@@ -3284,38 +3668,11 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this smoke test needs "
                  "one GPU")
-    from repro_torch.configs.feds3a_cnn import CNNConfig
-    from repro_torch.core import REFERENCE_CHURN, ParamLayout, baselines
-    from repro_torch.core import fleet_ckpt
     from repro_torch.core import sparse_comm as comm_mod
-    from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
-    from repro_torch.core.sparse_comm import flatten_tree
-    from repro_torch.data import (make_dataset, make_fleet_dataset,
-                                  make_lm_dataset)
-    from repro_torch.tree import leaves as tree_leaves
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.launch.serve import serve_batch
-    from repro_torch.models import lm
-    from repro_torch.models.cnn import cnn_param_count, cnn_template, init_cnn
-    from repro_torch.training.steps import make_prefill_step, make_serve_step
-    from repro_torch.weights import (params_to_numpy, tree_from_numpy,
-                                     tree_to_numpy)
     import numpy as np
-
-    port = SimpleNamespace(   # the entry points the phases drive
-        CNNConfig=CNNConfig, FedS3AConfig=FedS3AConfig,
-        FedS3ATrainer=FedS3ATrainer, make_dataset=make_dataset,
-        make_fleet_dataset=make_fleet_dataset, baselines=baselines,
-        cnn_param_count=cnn_param_count, init_cnn=init_cnn,
-        ParamLayout=ParamLayout, cnn_template=cnn_template,
-        params_to_numpy=params_to_numpy, get_config=get_config, lm=lm,
-        serve_batch=serve_batch, make_prefill_step=make_prefill_step,
-        make_serve_step=make_serve_step,
-        tree_from_numpy=tree_from_numpy, tree_to_numpy=tree_to_numpy,
-        REFERENCE_CHURN=REFERENCE_CHURN, fleet_ckpt=fleet_ckpt,
-        make_lm_dataset=make_lm_dataset, tree_leaves=tree_leaves,
-        flatten_tree=flatten_tree)
+    port = load_port()
 
     t_start = time.perf_counter()
     log("phase 1: card")
@@ -3469,6 +3826,11 @@ def main():
         f"requests, bucket {SERVE_BUCKET}, max_new {SERVE_NEW})")
     serve = serve_full_width(torch, np, port, ops, smi)
     paths["serve"] = {"launches": serve["launches"]}
+    log(f"phase 6b: training {TRAIN_ARCH} (T0: flash vs ref and "
+        f"microbatches, 2 layers, float32; T0c: reduced, card vs CPU; T1: "
+        f"full width, all 28 layers, batch {T1_RUN['batch']} x "
+        f"{T1_RUN['seq']}; F1: launch/train.py fl and lm)")
+    lm_train_res = lm_train(torch, np, port, smi, paths["batched+csr"])
 
     # launches: the default path's count, or for a kernel off it, that of
     # the first batched path that runs it (sparse_delta: dense_masked;
@@ -3491,7 +3853,7 @@ def main():
                       base_parity, "chunked_card_vs_cpu": chunk_parity,
                       "fleet": fleet_res, "faults": fault_res,
                       "dense_store": dense_res, "every_k_calls": every_k,
-                      "lm_path": lm_res,
+                      "lm_path": lm_res, "lm_train": lm_train_res,
                       "gpu": smi}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

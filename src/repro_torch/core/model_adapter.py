@@ -39,7 +39,8 @@ from repro_torch.models import lm
 from repro_torch.models.cnn import cnn_param_count, cnn_template, init_cnn
 from repro_torch.optimizer import adam_init_rows, adam_update, \
     adam_update_rows
-from repro_torch.tree import from_leaves, tree_map
+from repro_torch.training.steps import value_and_grad as _value_and_grad
+from repro_torch.tree import from_leaves
 from repro_torch.tree import leaves as tree_leaves
 
 __all__ = ["CNNAdapter", "LMAdapter", "make_adapter"]
@@ -89,15 +90,6 @@ class CNNAdapter:
 # ---------------------------------------------------------------------------
 # the LM as a final-token classifier (``model_adapter.py:96-308``)
 
-def _value_and_grad(loss_fn, params):
-    """(loss, gradients in leaf order) of ``loss_fn`` at ``params``, each
-    leaf a detached view that autograd treats as its own leaf."""
-    p = tree_map(lambda v: v.detach().requires_grad_(True), params)
-    loss = loss_fn(p)
-    grads = torch.autograd.grad(loss, tree_leaves(p), materialize_grads=True)
-    return loss.detach(), grads
-
-
 def _flat_grad(grads):
     return torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
 
@@ -136,10 +128,12 @@ class LMAdapter:
     # -- losses ----------------------------------------------------------
     def _logits(self, params, x):
         """Last-position logits (B, V) of float-carried token rows (B, S),
-        float32."""
+        float32. Not rematerialised: a client batch's activations are small
+        beside the (K, N) stacks, so recomputing them buys no memory, and
+        the results are the same bits either way."""
         logits, _, _ = lm.forward(self.cfg, params,
                                   {"tokens": x.to(torch.int64)},
-                                  head_mode="last")
+                                  remat=False, head_mode="last")
         return logits
 
     def _pseudo_loss(self, params, xi, vi):

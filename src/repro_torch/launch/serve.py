@@ -88,7 +88,7 @@ def _resolve_device(name):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {name!r}")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device is 'cuda' but CUDA is not available; "
-                           "pass --device cpu to serve on the CPU")
+                           "pass --device cpu to run on the CPU")
     return device
 
 

@@ -10,22 +10,27 @@ Weights are cast to the compute dtype where they are used, as the
 reference casts them; a weight already in that dtype is used as it is.
 
 Attention takes ``impl="ref"`` (the reference's ``_sdpa``, plain
-PyTorch) or ``impl="pallas"``, the reference's name for its flash
-kernel, which here launches the port's CUDA ``flash_attention`` on the
-card (``kernels/ops.py``). MLA, MoE, mamba, xLSTM and cross-attention are
-not ported: they come with ROADMAP.md queue 3b.
+PyTorch), ``impl="pallas"``, the reference's name for its flash kernel,
+which here launches the port's CUDA ``flash_attention`` on the card
+(``kernels/ops.py``), or ``impl="flash"``, the reference's training
+attention ``flash_attention_xla``: blockwise plain code under
+rematerialisation, differentiated by autograd as the reference's is by
+autodiff. MLA, MoE, mamba, xLSTM and cross-attention are not ported: they
+come with ROADMAP.md queue 3b.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
 LATER = "ROADMAP.md 'Still to port' queue 3b"
-IMPLS = ("ref", "pallas")
+IMPLS = ("ref", "pallas", "flash")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -132,12 +137,90 @@ def _sdpa(q, k, v, mask, scale):
 
 
 def _check_impl(impl):
-    if impl == "flash":
-        raise NotImplementedError(
-            "impl='flash' (flash_attention_xla with its custom VJP, the "
-            f"training path) is not ported; it comes with {LATER}")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+# ---------------------------------------------------------------------------
+# Flash attention in plain code (the reference's ``impl="flash"``)
+# ---------------------------------------------------------------------------
+# default tile sizes. The reference's ``constrain`` switch (sharding
+# constraints for a device mesh) is not taken here.
+FLASH_BLOCKS = {"qblk": 512, "kblk": 512, "tile_bf16": False}
+
+
+def flash_attention_xla(q, k, v, q_pos, k_pos, *, causal=True, window=None,
+                        qblk=None, kblk=None):
+    """Blockwise attention by online softmax over (qblk x kblk) tiles, the
+    reference's ``flash_attention_xla``. While autograd records, the call
+    runs under ``checkpoint`` as the reference's runs under
+    ``jax.checkpoint``: only q, k, v and the positions stay alive for the
+    backward, which recomputes the tiles."""
+    f = functools.partial(_flash_attention_xla_impl, causal=causal,
+                          window=window, qblk=qblk or FLASH_BLOCKS["qblk"],
+                          kblk=kblk or FLASH_BLOCKS["kblk"],
+                          tile_bf16=FLASH_BLOCKS["tile_bf16"])
+    if torch.is_grad_enabled():
+        return checkpoint(f, q, k, v, q_pos, k_pos, use_reentrant=False)
+    return f(q, k, v, q_pos, k_pos)
+
+
+def _flash_attention_xla_impl(q, k, v, q_pos, k_pos, *, causal, window,
+                              qblk, kblk, tile_bf16):
+    """q: (B,Sq,Hq,hd); k/v: (B,Sk,Hkv,hd); positions (B,Sq) / (B,Sk), read
+    only when a length is not a multiple of its block (``_sdpa`` then
+    takes the whole call); the tiles take their positions from the block
+    counters. KV heads are repeated to the full head count. Every tile is
+    computed: a fully masked one is wiped by the next ``corr = 0``."""
+    B, Sq, Hq, hd = q.shape
+    _, Sk, Hkv, _ = k.shape
+    hdv = v.shape[-1]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    qblk = min(qblk, Sq)
+    kblk = min(kblk, Sk)
+    if Sq % qblk or Sk % kblk:
+        mask = _causal_mask(q_pos, k_pos, window) if causal else None
+        return _sdpa(q, k, v, mask, scale)
+    nq, nk = Sq // qblk, Sk // kblk
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    qb = q.reshape(B, nq, qblk, Hq, hd).permute(1, 0, 3, 2, 4)  # (nq,B,H,qblk,hd)
+    kb = k.reshape(B, nk, kblk, Hq, hd).permute(1, 0, 3, 2, 4)
+    vb = v.reshape(B, nk, kblk, Hq, hdv).permute(1, 0, 3, 2, 4)
+    iq = torch.arange(qblk, dtype=torch.int32, device=q.device)
+    ik = torch.arange(kblk, dtype=torch.int32, device=q.device)
+    outs = []
+    for qidx in range(nq):
+        qi = qb[qidx]
+        qp = qidx * qblk + iq
+        m = torch.full((B, Hq, qblk), -1e30, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, Hq, qblk), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, Hq, qblk, hdv), dtype=torch.float32,
+                          device=q.device)
+        for kidx in range(nk):
+            ki, vi = kb[kidx], vb[kidx]
+            kp = kidx * kblk + ik
+            s = torch.einsum("bhqd,bhkd->bhqk", qi, ki).float() * scale
+            if causal:
+                ok = kp[None, :] <= qp[:, None]          # (qblk, kblk)
+                if window is not None:
+                    ok &= kp[None, :] > (qp[:, None] - window)
+                s = torch.where(ok, s, -1e30)
+            if tile_bf16:
+                s = s.to(torch.bfloat16).float()
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(vi.dtype), vi).float()
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.to(q.dtype))
+    return torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, Sq, Hq, hdv)
 
 
 def _project(cfg, params, x, dt):
@@ -155,7 +238,8 @@ def attention(cfg, params, x, positions, *, window=None, causal=True,
               impl="ref"):
     """Full (or sliding-window) causal self-attention. ``impl="pallas"``
     runs the flash kernel (``ops.flash_attention``), which takes the
-    positions to be 0..S-1, as the reference's does."""
+    positions to be 0..S-1, as the reference's does; ``impl="flash"``
+    runs ``flash_attention_xla``."""
     _check_impl(impl)
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -167,6 +251,9 @@ def attention(cfg, params, x, positions, *, window=None, causal=True,
     v = v.reshape(B, S, nkv, hd)
     if impl == "pallas" and causal:
         out = ops.flash_attention(q, k, v, window=window)
+    elif impl == "flash" and causal:
+        out = flash_attention_xla(q, k, v, positions, positions,
+                                  window=window)
     else:
         mask = _causal_mask(positions, positions, window) if causal else None
         out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(hd))

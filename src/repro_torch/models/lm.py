@@ -7,9 +7,10 @@ The parameter tree is the reference's: ``{"embed", "final_norm",
 the layers that repeat with period ``period`` are stacked along a leading
 axis of ``reps`` (``scan_plan``), so ``weights.tree_from_numpy`` carries
 the reference's parameters over leaf by leaf. The reference scans the
-stack with ``lax.scan``; here it is a Python loop over ``reps`` with no
-rematerialisation. Encoder frames (whisper) and vision patches (pixtral)
-are not ported: they come with ROADMAP.md queue 3b.
+stack with ``lax.scan``; here it is a Python loop over ``reps``, each
+repetition under ``checkpoint`` (``remat``) as the reference's scan body
+is under ``jax.checkpoint``. Encoder frames (whisper) and vision patches
+(pixtral) are not ported: they come with ROADMAP.md queue 3b.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -140,12 +142,15 @@ def _head(cfg, params):
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def forward(cfg, params, batch, *, window=None, impl="ref",
+def forward(cfg, params, batch, *, window=None, impl="ref", remat=True,
             collect_cache=False, head_mode="full"):
     """batch: {"tokens": (B,S) integer}. Returns (logits float32, aux,
     caches|None). ``head_mode``: "full" logits (B,S,V) or "last" logits
-    (B,V). ``impl``: "ref" or "pallas" (the CUDA flash kernel on the
-    card)."""
+    (B,V). ``impl``: "ref", "pallas" (the CUDA flash kernel on the card)
+    or "flash" (``layers.flash_attention_xla``). ``remat``: while autograd
+    records, each repetition of the stacked layers keeps only its input
+    for the backward and recomputes the rest there; the prefix layers are
+    not rematerialised, as in the reference."""
     _check_model(cfg, batch)
     sigs = cfg.layer_pattern()
     prefix_len, period, reps = scan_plan(cfg)
@@ -166,17 +171,28 @@ def forward(cfg, params, batch, *, window=None, impl="ref",
         if collect_cache:
             caches["prefix"].append(c)
 
-    per_pos = {f"pos_{j}": [] for j in range(period if reps else 0)}
-    for r in range(reps):
-        per_rep = _index(params["scan"], r)
+    def body(x, aux, per_rep):
+        reps_cache = {}
         for j in range(period):
             x, a, c = B.apply_block(cfg, per_rep[f"pos_{j}"],
                                     sigs[prefix_len + j], x, positions,
                                     window=window, impl=impl,
                                     collect_cache=collect_cache)
             aux = aux + a
-            if collect_cache:
-                per_pos[f"pos_{j}"].append(c)
+            reps_cache[f"pos_{j}"] = c
+        return x, aux, reps_cache
+
+    per_pos = {f"pos_{j}": [] for j in range(period if reps else 0)}
+    for r in range(reps):
+        per_rep = _index(params["scan"], r)
+        if remat and torch.is_grad_enabled():
+            x, aux, reps_cache = checkpoint(body, x, aux, per_rep,
+                                            use_reentrant=False)
+        else:
+            x, aux, reps_cache = body(x, aux, per_rep)
+        if collect_cache:
+            for name, c in reps_cache.items():
+                per_pos[name].append(c)
     if collect_cache:
         caches["scan"] = {k: _stack(v) for k, v in per_pos.items() if v}
 

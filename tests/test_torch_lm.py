@@ -404,10 +404,16 @@ def test_other_families_raise(override):
         lm.init_params(cfg, torch.Generator().manual_seed(0))
 
 
-def test_flash_impl_raises(params):
+def test_flash_impl_raises(params, monkeypatch):
+    """``impl="flash"`` (the blockwise training attention) gives the plain
+    attention's logits on the float32 model within 1e-5, over a 2 x 2 grid
+    of tiles; an unknown implementation still raises."""
     _, cfg = _cfgs("float32")
-    _, tbatch = _tokens(9, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*queue 3b"):
-        lm.forward(cfg, params[1], tbatch, impl="flash")
+    _, tbatch = _tokens(9, 2, 32)
+    monkeypatch.setitem(L.FLASH_BLOCKS, "qblk", 16)
+    monkeypatch.setitem(L.FLASH_BLOCKS, "kblk", 16)
+    flash, _, _ = lm.forward(cfg, params[1], tbatch, impl="flash")
+    ref, _, _ = lm.forward(cfg, params[1], tbatch, impl="ref")
+    _close(flash, ref.numpy(), F32_LAYER)
     with pytest.raises(ValueError):
         lm.forward(cfg, params[1], tbatch, impl="splash")
