@@ -39,7 +39,13 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    confident and tied rows planted, the two timed alone beside
    ``torch.log_softmax`` / ``torch.softmax``; ``csr_compact`` at (1, N)
    and (6, N) and ``staleness_agg`` at (1-6, N) at phase 5h's flat widths
-   (up to N = 420,566,528: 2.52e9 elements in six rows);
+   (up to N = 420,566,528: 2.52e9 elements in six rows); and at phase 5i's
+   chunk widths (LC's layouts at 4 and 2 layers and L0c's, derived from
+   the layouts as ``chunk_plan`` derives them) ``csr_compact`` (upload at cap,
+   EF residual at rcap, chain advance) and ``staleness_agg`` bit for bit at
+   K = 6, 1 and ``FAULT_KS``, each K's calls back to back, one call of
+   each timed at each distinct LC width (K = 6); the narrow ``masked_pseudo_ce``
+   rows beside ``torch.log_softmax(x).max(1)`` and ``torch.softmax``;
 4. run the port's sequential engine twice on the card and once on the CPU
    from the same initial weights (full-width paper CNN, dropout 0,
    2 rounds) and compare schedules, parameters, metrics and ACO; then
@@ -127,6 +133,26 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    the full vocabulary in float32, on the card against its CPU twin (a
    subprocess started at the phase's start); every (kernel, rows, width)
    launched must be one phase 3 held;
+5i. the chunked, faulted, checkpointed FL language model: LC, phase 5h's
+   L2 setting (4 of 28 layers, or 2 if its peak passes 70 GB) on the
+   chunked parameter axis in chunks of ceil(N / 6), csr + EF, with the
+   example's faults (5% crashes, 5% lost uploads, a 2,000 s deadline, a
+   quorum floor of 1; ``examples/fl_large_model.py``), 4 rounds, the rounds
+   of the first crash and lost upload printed; LCs, the same on the
+   sequential engine, equal to LC bit for bit; each held to its exact
+   launches by (kernel, rows, width) from each round's K and the chunk
+   plan, with its peak device memory, the upload stage's own peak and the
+   reference's analytic ``peak_delta_device_bytes``; L0c, L0's model with
+   LC's settings, on the card against its CPU twin (a subprocess started
+   with phase 5h, whose wall time is the card's; traces exact, L0's
+   bounds) and saved after 3
+   rounds (``wait=False``, a round run at once), restored onto a fresh
+   trainer, saved again (``wait=True``), restored onto a third and
+   finished, both bit for bit against the uninterrupted run (checkpoint
+   bytes, save, exposure and restore seconds printed; the directory
+   removed); F2, ``python -m repro_torch.launch.fl_large_model`` at its
+   defaults; every (kernel, rows, width) launched must be one phase 3
+   held;
 6. serve qwen2-1.5b at full width (random weights, bf16): 8 requests
    of 512-2048 tokens, bucket 2048, 32 new tokens, through
    ``serve_batch`` with the flash kernel, the counters showing exactly
@@ -156,7 +182,7 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
 7. print one ``{"kernels": [...], "paths": ..., "serve": ...,
    "baselines": ..., "baselines_card_vs_cpu": ..., "chunked_card_vs_cpu":
    ..., "fleet": ..., "faults": ..., "dense_store": ..., "lm_path": ...,
-   "lm_train": ...}`` line, then the
+   "lm_chunked": ..., "lm_train": ...}`` line, then the
    result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -423,10 +449,19 @@ def check_masked_pseudo_ce(torch, ops, ref, dev, gen):
         plain = profile_call(torch, lambda: _mpce_call(
             torch, ref.masked_pseudo_ce_ref, ref.masked_pseudo_ce_grad,
             logits, g), reps=200)
+        # the library's nearest calls: the forward's max log-probability,
+        # the backward's softmax
+        lib_fwd = profile_call(torch, lambda: torch.log_softmax(
+            logits, dim=1).max(dim=1), reps=200)
+        lib_bwd = profile_call(torch, lambda: torch.softmax(logits, dim=1),
+                               reps=200)
         b, by = bound_ms(8 * n * c + 12 * n, 11 * n * c + 7 * n)
         fwd_bwd.append({
             "shape": [n, c], "ms": kern["device_ms"],
-            "plain_ms": plain["device_ms"], "library_ms": None,
+            "plain_ms": plain["device_ms"],
+            "library_ms": lib_fwd["device_ms"] + lib_bwd["device_ms"],
+            "library_how": "torch.log_softmax(x).max(1) + torch.softmax(x)",
+            "library_forward_ms": lib_fwd["device_ms"],
             "bound_ms": b, "bound_by": by, **kern,
             "plain_device_ops": plain["device_ops"],
             "plain_host_ms": plain["host_ms"]})
@@ -436,7 +471,9 @@ def check_masked_pseudo_ce(torch, ops, ref, dev, gen):
             logits, mask, g), reps=200)
         b, by = bound_ms(8 * n * c + 8 * n, 7 * n * c + n)
         bwd.append({"shape": [n, c], "ms": kb["device_ms"],
-                    "plain_ms": pb["device_ms"], "library_ms": None,
+                    "plain_ms": pb["device_ms"],
+                    "library_ms": lib_bwd["device_ms"],
+                    "library_how": "torch.softmax(x)",
                     "bound_ms": b, "bound_by": by, **kb,
                     "plain_device_ops": pb["device_ops"],
                     "plain_host_ms": pb["host_ms"]})
@@ -2730,11 +2767,8 @@ def lm_config(port, layers=LM_LAYERS, **kw):
 def lm_widths(port):
     """The flat N of phase 5h's models: full width at 4 and 2 layers, and
     L0's reduced widths with the full vocabulary."""
-    import math
-    return sorted({sum(math.prod(t.shape) for t in
-                       port.tree_leaves(port.lm.param_template(c)))
-                   for c in (lm_config(port), lm_config(port, LM_LAYERS_CUT),
-                             l0_config(port))})
+    return sorted({lm_n(port, c) for c in (
+        lm_config(port), lm_config(port, LM_LAYERS_CUT), l0_config(port))})
 
 
 def l0_config(port):
@@ -2957,7 +2991,8 @@ def lm_run(torch, port, ops, name, cfg, engine, dev, rounds, init=None,
            "layers": cfg.num_layers, "dtype": cfg.dtype,
            "mask_kept": [int(k) for k in kept], "launches": launches,
            "launches_by_shape": by_shape, "peak_device_bytes": peak,
-           "participants": [l.participants for l in tr.logs]}
+           "participants": [l.participants for l in tr.logs],
+           "fleet": out["fleet"]}
     log(f"  {name} ({engine}, {dev}, {cfg.num_layers} layers, N "
         f"{res['n_params']}, {cfg.dtype}): {res['s_per_round']:.3f} s a "
         f"round (set-up {res['setup_s']:.3f} s), accuracy "
@@ -3121,6 +3156,459 @@ def _lm_path_runs(torch, port, ops, held, twin, twin_out, twin_err):
     log(f"  launched (kernel, rows, width): {launched}")
     check(not missing, f"phase 5h launched {missing}, not held in phase 3")
     return {"layers": layers, "runs": runs}
+
+
+# -- phase 5i: the chunked, faulted, checkpointed FL language model ---------
+# LC: phase 5h's L2 setting on the chunked parameter axis with the example's
+# faults (examples/fl_large_model.py: chunks of ceil(N / 6), csr + EF, 5%
+# crashes and 5% lost uploads, a 2,000 s deadline, a quorum floor of 1).
+# On make_lm_dataset(10, ...) at seed 0 the first crash and the first lost
+# upload fire in round 4 (the phase prints the rounds), so LC runs 4
+LC_CHUNKS = 6
+LC_ROUNDS = 4
+LC_SAVE = 3                   # L0c is saved after this many rounds
+LC_FAULTS = dict(crash_rate=0.05, upload_loss=0.05)
+LC_KW = dict(error_feedback=True, round_deadline=2000.0, quorum_floor=1)
+# the participant counts phase 3 holds the chunk kernels at: a full round,
+# the chain advance's one row, and a degraded quorum's
+LC_KS = (6, 1) + FAULT_KS
+
+
+def lm_n(port, cfg):
+    """The flat N of an LM config: every leaf of its parameter tree."""
+    return sum(math.prod(t.shape)
+               for t in port.tree_leaves(port.lm.param_template(cfg)))
+
+
+def lc_extra(port, cfg, **kw):
+    """LC's settings beyond ``LM_RUN`` for the LM ``cfg``."""
+    return dict(chunk_size=-(-lm_n(port, cfg) // LC_CHUNKS),
+                traffic=port.TrafficModel(**LC_FAULTS), **LC_KW, **kw)
+
+
+def lc_plans(port, comm_mod):
+    """{name: chunk plan} of phase 5i's layouts: LC's at 4 and at 2 layers
+    (p0.2) and L0c's (its absolute threshold: a payload capacity of the
+    chunk's width)."""
+    runs = {f"LC at {n} layers": (lm_config(port, n), "p0.2")
+            for n in (LM_LAYERS, LM_LAYERS_CUT)}
+    runs["L0c"] = (l0_config(port), LM_L0_KW["sparse_threshold"])
+    out = {}
+    for name, (cfg, thr) in runs.items():
+        layout = port.ParamLayout.from_template(
+            port.lm.param_template(cfg), lc_extra(port, cfg)["chunk_size"])
+        out[name] = comm_mod.SparseComm(thr, layout=layout).chunk_plan()
+    return out
+
+
+def _lc_calls(torch, ops, ref, comm_mod, gen, dev, p, k):
+    """One chunk's kernel calls in an LC round at ``k`` participants, with
+    their plain versions: the upload compacted at cap, the EF residual at
+    rcap, the blend's ``staleness_agg`` (k rows) and the chain advance's
+    compaction (one row)."""
+    up = _chunk_inputs(torch, ref, comm_mod, gen, dev, p, k)
+    chain = _chunk_inputs(torch, ref, comm_mod, gen, dev, p, 1)
+    calls = _chunk_calls(torch, ops, ref, p, up, "upload") + \
+        _chunk_calls(torch, ops, ref, p, up, "residual") + \
+        _chunk_calls(torch, ops, ref, p, chain, "chain")
+    return [c for c in calls if not c[0].startswith("csr_quant")]
+
+
+def check_lm_chunk_widths(torch, ops, ref, comm_mod, port, dev, gen,
+                          flushes, plans):
+    """Phase 3 at phase 5i's chunk widths (``plans``, from ``lc_plans``):
+    ``csr_compact`` (upload at cap, EF residual at rcap, chain advance at
+    one row) and ``staleness_agg`` bit for bit at every distinct (width,
+    cap) of each plan and every K of ``LC_KS``, each K's calls over the
+    plan's widths back to back on one stream, as a round makes them. With ``flushes``, one call of each kernel at each
+    distinct width of LC's plans at K = 6 is timed. Returns ({kernel:
+    [timed shape entries]}, the set of (kernel, rows, width) held)."""
+    held, calls_held = set(), 0
+    for name, plan in plans.items():
+        widths = {(p["nc"], p["cap"]): p for p in plan}
+        for k in LC_KS:
+            calls = []
+            for p in widths.values():
+                calls += _lc_calls(torch, ops, ref, comm_mod, gen, dev, p, k)
+                held |= {("csr_compact", k, p["nc"]),
+                         ("csr_compact", 1, p["nc"]),
+                         ("staleness_agg", k, p["nc"])}
+            calls_held += _hold(torch, calls)
+            del calls
+            torch.cuda.empty_cache()
+        log(f"  {name}: chunk (width, cap) {sorted(widths)} at K = "
+            f"{list(LC_KS)} bit-exact")
+    log(f"  {calls_held} calls bit-exact")
+    timed = {"csr_compact": [], "staleness_agg": []}
+    if flushes is None:
+        return timed, held
+    lc = [p for name, plan in plans.items() if name.startswith("LC")
+          for p in plan]
+    for nc in sorted({p["nc"] for p in lc}):
+        p = next(q for q in lc if q["nc"] == nc)
+        inp = _chunk_inputs(torch, ref, comm_mod, gen, dev, p, 6)
+        x, thr, cap, w = inp.x, inp.thr, p["cap"], inp.w
+        timed["csr_compact"].append({
+            "shape": [6, nc], "case": "FL LM chunk upload", "cap": cap,
+            **csr_compact_call(torch, ops, x, thr, cap, flushes),
+            "plain_ms": time_ms(torch, lambda: ref.csr_compact2d_ref(
+                x, thr, cap), reps=3, flush=flushes.clean),
+            "library_ms": None})
+        timed["staleness_agg"].append({
+            "shape": [6, nc], "case": "FL LM chunk blend", **_timed(
+                torch, lambda: ops.staleness_agg(x, w),
+                lambda: ref.staleness_agg_ref(x, w), 7 * 4 * nc + 4 * 6,
+                2 * 6 * nc, reps=30, plain_reps=5, flushes=flushes,
+                library=lambda: w @ x)})
+        del inp, x, thr, w
+        torch.cuda.empty_cache()
+    for name, shapes in timed.items():
+        for sh in shapes:
+            log(f"  {name} LM chunk {sh['shape']}: kernel {sh['ms']:.5f} ms "
+                f"(events {sh['event_ms']:.5f}), plain {sh['plain_ms']:.5f} "
+                f"ms, library {sh['library_ms']}, bound "
+                f"{sh['bound_ms']:.6f} ms ({sh['bound_by']}), "
+                f"{sh['bound_ms'] / sh['ms']:.0%} of it")
+    return timed, held
+
+
+def lc_expected(plan, tr, steps):
+    """The exact launches by (kernel, rows, width) of a chunked LM run with
+    EF on csr: each round, at its K participants, every chunk compacts the
+    upload and the residuals (K rows) and the chain advance (one row) and
+    blends K rows; the Eq. 5 kernels run at (B, V) once a client step
+    (``steps``), forward and backward."""
+    want = {}
+
+    def add(key, n):
+        want[key] = want.get(key, 0) + n
+    for log_ in tr.logs:
+        k = len(log_.participants)
+        for p in plan:
+            add(("csr_compact", k, p["nc"]), 2)
+            add(("csr_compact", 1, p["nc"]), 1)
+            add(("staleness_agg", k, p["nc"]), 1)
+    for kern in ("masked_pseudo_ce", "masked_pseudo_ce_bwd"):
+        add((kern, LM_B, tr.adapter.num_classes), steps)
+    return want
+
+
+def client_steps(tr):
+    """Client steps over a run: each participant's batches, a round."""
+    nb = tr.num_batches
+    return sum(nb[i] for log_ in tr.logs for i in log_.participants)
+
+
+def lc_run(torch, port, ops, name, cfg, engine, dev, rounds, init=None,
+           **extra):
+    """One phase-5i run (``lm_run`` with LC's settings), held to its exact
+    launches by shape; with its fault trace and counts, and the
+    reference's analytic delta peak."""
+    r = lm_run(torch, port, ops, name, cfg, engine, dev, rounds, init,
+               **lc_extra(port, cfg, **extra))
+    tr = r.tr
+    check(tr.chunked and tr.layout.num_chunks > 1,
+          f"{name}: not chunked ({tr.layout})")
+    r.res.update(trace=fault_trace(tr), counts=fault_counts(tr),
+                 chunks=list(tr.layout.sizes),
+                 peak_delta_device_bytes=tr.peak_delta_device_bytes())
+    if dev == "cuda":
+        want = lc_expected(tr.comm.chunk_plan(), tr, client_steps(tr))
+        got = {tuple(k): c for *k, c in r.res["launches_by_shape"]}
+        check(got == want, f"{name}: launches by shape {sorted(got.items())}"
+              f", expected {sorted(want.items())}")
+        for kern in ("sparse_delta", "csr_quant", "flash_attention"):
+            check(r.res["launches"][kern] == 0,
+                  f"{name}: {kern} launched off its path")
+    return r
+
+
+def state_arrays(tr):
+    """What ``state_digests`` hashes, as host arrays: two runs whose state
+    is too large to hash in a few seconds are compared array by array."""
+    out = {"flat": tr._global_flat.cpu().numpy(),
+           "ring": tr.store.ring.cpu().numpy(),
+           "client_version": tr.store.client_version.copy(),
+           "detached": tr.store.detached.copy()}
+    if tr.cstore is not None:
+        for i, a in enumerate(tr.cstore.state_dict()["arrays"]):
+            out[f"residuals {i}"] = a
+    return out
+
+
+def same_arrays(np, a, b):
+    """Equal keys, and under each equal dtype, shape and bytes."""
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and
+        np.array_equal(a[k].reshape(-1).view(np.uint8),
+                       b[k].reshape(-1).view(np.uint8)) for k in a)
+
+
+def l0c_cpu(out_path):
+    """L0c's CPU twin, run as a subprocess while the card runs LC: writes
+    the final flat parameters, metrics, ACO, fault trace and the rows the
+    mask kept to ``out_path`` (.npz)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import TrafficModel
+    from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
+    from repro_torch.core.sparse_comm import flatten_tree
+    from repro_torch.data import make_lm_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves as tree_leaves
+    from repro_torch.weights import tree_to_numpy
+    torch.set_num_threads(LM_L0_THREADS)
+    port = SimpleNamespace(get_config=get_config, FedS3AConfig=FedS3AConfig,
+                           FedS3ATrainer=FedS3ATrainer, lm=lm,
+                           make_lm_dataset=make_lm_dataset,
+                           tree_to_numpy=tree_to_numpy,
+                           tree_leaves=tree_leaves,
+                           TrafficModel=TrafficModel)
+    r = lc_run(torch, port, ops, "L0c CPU", l0_config(port), "batched",
+               "cpu", LC_ROUNDS, l0_init(torch, port), **LM_L0_KW)
+    np.savez(out_path, flat=flatten_tree(r.tr.global_params).numpy(),
+             aco=r.out["aco"], s_per_round=r.res["s_per_round"],
+             metrics=json.dumps(r.out["metrics"]),
+             trace=json.dumps(r.res["trace"]),
+             mask_kept=np.asarray(r.res["mask_kept"]))
+
+
+def l0c_resume(torch, port, whole, root):
+    """L0c saved after ``LC_SAVE`` rounds in the background and trained on
+    at once (the next round writes the ring and the residuals in place);
+    restored onto a fresh trainer, saved again with ``wait=True`` and
+    finished; that checkpoint restored onto a third trainer and finished.
+    Both finished runs must equal the uninterrupted run ``whole`` bit for
+    bit. Returns the checkpoint's bytes and the save, exposure and restore
+    seconds."""
+    cfg = l0_config(port)
+    data = port.make_lm_dataset(10, **LM_DATA)
+    init = l0_init(torch, port)
+
+    def trainer():
+        return port.FedS3ATrainer(data, port.FedS3AConfig(
+            model=cfg, engine="batched", device="cuda",
+            **dict(LM_RUN, rounds=LC_ROUNDS, **LM_L0_KW,
+                   **lc_extra(port, cfg, checkpoint_dir=str(root)))),
+            init_params=init)
+
+    a = trainer()
+    a.train(LC_SAVE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.save_checkpoint(wait=False)
+    t1 = time.perf_counter()
+    a.run_round()
+    a._ckpt_drain()
+    t2 = time.perf_counter()
+    del a
+    torch.cuda.empty_cache()
+    res = {"exposure_s": t1 - t0, "background_write_s_with_a_round": t2 - t0}
+    same = {}
+    for name in ("background save", "wait=True save"):
+        b = trainer()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        got = b.restore()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        check(got == LC_SAVE, f"L0c restored round {got}, saved {LC_SAVE}")
+        if name == "background save":
+            res["restore_s"] = t4 - t3
+            t5 = time.perf_counter()
+            path = b.save_checkpoint(wait=True)
+            res["save_s"] = time.perf_counter() - t5
+            res["ckpt_bytes"] = _dir_bytes(path)
+        out = b.train(LC_ROUNDS - LC_SAVE)
+        same[name] = {"state": state_digests(b) == whole["state"],
+                      "trace": fault_trace(b) == whole["trace"],
+                      "aco": out["aco"] == whole["aco"],
+                      "fleet": out["fleet"] == whole["fleet"],
+                      "metrics": out["metrics"] == whole["metrics"]}
+        del b
+        torch.cuda.empty_cache()
+    log(f"  L0c resumed at round {LC_SAVE}: checkpoint {res['ckpt_bytes']} B,"
+        f" save(wait=True) {res['save_s']:.3f} s, save(wait=False) exposure "
+        f"{res['exposure_s'] * 1e3:.2f} ms (its write beside a round "
+        f"{res['background_write_s_with_a_round']:.3f} s), restore "
+        f"{res['restore_s']:.3f} s; bit-equal to the uninterrupted run: "
+        f"{same}")
+    check(all(all(v.values()) for v in same.values()),
+          f"L0c: a resumed run differs: {same}")
+    return dict(res, same=same)
+
+
+def fl_large_model_cli():
+    """F2: ``python -m repro_torch.launch.fl_large_model`` at its defaults
+    on the card, as a subprocess: exit 0 and the example's final lines."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for knob in ("EXAMPLES_ROUNDS", "EXAMPLES_LM_CLIENTS",
+                 "EXAMPLES_LM_CHUNKS"):
+        env.pop(knob, None)
+    p = subprocess.run([sys.executable, "-m",
+                        "repro_torch.launch.fl_large_model"], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=600)
+    lines = p.stdout.strip().splitlines()
+    secs = time.perf_counter() - t0
+    for line in lines:
+        log(f"    [fl_large_model] {line}")
+    check(p.returncode == 0, f"F2: fl_large_model exited {p.returncode}: "
+          f"{p.stderr[-2000:]}")
+    check(len(lines) >= 2 and lines[-2].startswith("final: acc=") and
+          lines[-1].startswith("wire layout:"),
+          f"F2: no final lines in {lines[-3:]}")
+    check(sum(line.startswith("  round ") for line in lines) == 6,
+          "F2: not 6 rounds")
+    log(f"  F2 fl_large_model: exit 0 in {secs:.1f} s")
+    return {"seconds": secs, "final": lines[-2], "layout": lines[-1]}
+
+
+def start_l0c_twin():
+    """L0c's CPU twin (``--lm-l0c-cpu``) in a process of its own, with a
+    temporary directory for its output and phase 5i's checkpoints."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lmc_"))
+    err = open(tmp / "l0c_cpu.err", "w+")
+    out = tmp / "l0c_cpu.npz"
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--lm-l0c-cpu", str(out)],
+                            stdout=subprocess.DEVNULL, stderr=err)
+    return SimpleNamespace(proc=proc, out=out, err=err, tmp=tmp)
+
+
+def stop_l0c_twin(twin):
+    """Stop the twin if it still runs and remove its directory."""
+    if twin.proc.poll() is None:
+        twin.proc.kill()
+        twin.proc.wait()
+    twin.err.close()
+    shutil.rmtree(twin.tmp, ignore_errors=True)
+
+
+def lm_chunked(torch, port, ops, ref, comm_mod, held, twin=None):
+    """Phase 5i. LC, qwen2-1.5b at every published width (bf16 compute,
+    float32 parameters), 4 of 28 layers (2 if its peak passes
+    ``LM_PEAK_CUT``), in ``LC_CHUNKS`` chunks, csr + EF, under the
+    example's faults, ``LC_ROUNDS`` rounds on the batched engine; LCs the
+    same on the sequential engine, equal to LC bit for bit; each held to
+    its exact launches by shape, each followed by one round that reads the
+    upload stage's own peak. L0c, L0's model in float32 with LC's settings
+    (and ``LM_L0_KW``): on the card against its CPU twin (a subprocess
+    started first; ``L0_PARAM_TOL``, traces exact) and resumed from a
+    checkpoint bit for bit. F2, the ``fl_large_model`` launcher. Every
+    (kernel, rows, width) launched must have been held in phase 3.
+    ``twin``: L0c's CPU twin if the caller started it earlier
+    (``start_l0c_twin``), else it starts here; it is stopped on return."""
+    twin = twin or start_l0c_twin()
+    try:
+        return _lm_chunked_runs(torch, port, ops, ref, comm_mod, held, twin)
+    finally:
+        stop_l0c_twin(twin)
+
+
+def _lc_try(torch, port, ops, name, layers, engine):
+    """``lc_run`` on the card at ``layers`` layers, or None if it ran out
+    of memory (its tensors die with the traceback, outside the except)."""
+    try:
+        return lc_run(torch, port, ops, name, lm_config(port, layers),
+                      engine, "cuda", LC_ROUNDS)
+    except torch.cuda.OutOfMemoryError as e:
+        log(f"  {name} ran out of memory at {layers} layers "
+            f"({str(e).splitlines()[0]})")
+    return None
+
+
+def _lm_chunked_runs(torch, port, ops, ref, comm_mod, held, twin):
+    import numpy as np
+    runs, layers, states = {}, LM_LAYERS, {}
+    for name, engine in (("LC", "batched"), ("LCs", "sequential")):
+        r = _lc_try(torch, port, ops, name, layers, engine)
+        if name == "LC" and (r is None or
+                             r.res["peak_device_bytes"] > LM_PEAK_CUT):
+            runs["LC at 4 layers"] = {"out_of_memory": True} if r is None \
+                else r.res
+            peak = "past the card" if r is None else \
+                r.res["peak_device_bytes"]
+            log(f"  LC at {layers} layers: peak {peak} B, over "
+                f"{LM_PEAK_CUT} B: phase 5i cut to {LM_LAYERS_CUT} layers")
+            del r
+            torch.cuda.empty_cache()
+            layers = LM_LAYERS_CUT
+            r = _lc_try(torch, port, ops, name, layers, engine)
+        check(r is not None, f"{name} ran out of memory at {layers} layers")
+        states[name] = state_arrays(r.tr)
+        r.res["stage_peak_bytes"] = stage_peak(torch, r.tr, "_chunk_upload")
+        log(f"  {name}: chunks {r.res['chunks']}, peak device memory "
+            f"{r.res['peak_device_bytes']} B, the upload stage's own peak "
+            f"{r.res['stage_peak_bytes']} B, the reference's analytic delta "
+            f"peak {r.res['peak_delta_device_bytes']} B; fleet "
+            f"{r.res['fleet']}")
+        runs[name] = r.res
+        del r
+        torch.cuda.empty_cache()
+    lc, lcs = runs["LC"], runs["LCs"]
+    first = lc["counts"]["first_round"]
+    log(f"  LC: the first crash in round {first['crashes']}, the first lost "
+        f"upload in round {first['lost']}")
+    check(first["crashes"] is not None and first["lost"] is not None,
+          f"LC: no crash or no lost upload in {LC_ROUNDS} rounds")
+    same = {k: lc[k] == lcs[k] for k in ("trace", "aco", "metrics",
+                                         "mask_kept", "fleet")}
+    same["state"] = same_arrays(np, states.pop("LC"), states.pop("LCs"))
+    lcs["same_as_LC"] = same
+    log(f"  LCs (sequential) against LC (batched), bit for bit: {same}")
+    check(all(same.values()), f"LCs differs from LC: {same}")
+
+    card = lc_run(torch, port, ops, "L0c", l0_config(port), "batched",
+                  "cuda", LC_ROUNDS, l0_init(torch, port), **LM_L0_KW)
+    runs["L0c"] = dict(card.res, state=state_digests(card.tr))
+    flat = port.flatten_tree(card.tr.global_params).cpu().numpy()
+    del card
+    torch.cuda.empty_cache()
+    runs["L0c"]["resume"] = l0c_resume(torch, port, runs["L0c"],
+                                       twin.tmp / "ckpt")
+    shutil.rmtree(twin.tmp / "ckpt", ignore_errors=True)
+    f2 = fl_large_model_cli()
+
+    t0 = time.perf_counter()
+    twin.proc.wait(timeout=900)
+    log(f"  waited {time.perf_counter() - t0:.1f} s for L0c's CPU twin")
+    twin.err.seek(0)
+    check(twin.proc.returncode == 0, f"L0c's CPU twin failed: "
+          f"{twin.err.read()[-2000:]}")
+    cpu = np.load(twin.out)
+    worst, outside, total = _param_diff(np, {"flat": flat},
+                                        {"flat": cpu["flat"]})
+    cpu_m = json.loads(str(cpu["metrics"]))
+    mdiff, adiff = _drift(runs["L0c"], {"metrics": cpu_m,
+                                        "aco": float(cpu["aco"])})
+    same_trace = runs["L0c"]["trace"] == json.loads(str(cpu["trace"]))
+    same_kept = runs["L0c"]["mask_kept"] == cpu["mask_kept"].tolist()
+    log(f"  L0c card vs CPU: fault traces equal {same_trace}, rows kept "
+        f"{runs['L0c']['mask_kept']} / {cpu['mask_kept'].tolist()}, max "
+        f"|diff| {worst:.3g} ({outside} of {total} outside atol 1e-4 + rtol "
+        f"1e-3), max |metric diff| {mdiff:.3g}, |ACO diff| {adiff:.3g}; the "
+        f"CPU twin {float(cpu['s_per_round']):.3f} s a round")
+    runs["L0c"]["card_vs_cpu"] = {
+        "max_diff": worst, "outside": outside, "metric_diff": mdiff,
+        "aco_diff": adiff, "cpu_aco": float(cpu["aco"]),
+        "cpu_s_per_round": float(cpu["s_per_round"])}
+    check(same_trace and same_kept, "L0c: card and CPU fault traces or "
+          "kept rows differ")
+    check(worst <= L0_PARAM_TOL and outside <= L0_OUTSIDE_SHARE * total
+          and mdiff < 1e-4 and adiff < 2e-3,
+          f"L0c card vs CPU: parameters {worst} ({outside} of {total} "
+          f"outside atol / rtol), metrics {mdiff}, ACO {adiff}")
+    launched = sorted({(kern, rows, width) for name in ("LC", "LCs", "L0c")
+                       for kern, rows, width, _ in
+                       runs[name]["launches_by_shape"]})
+    missing = [x for x in launched if x not in held]
+    log(f"  launched (kernel, rows, width): {launched}")
+    check(not missing, f"phase 5i launched {missing}, not held in phase 3")
+    return {"layers": layers, "runs": runs, "fl_large_model": f2}
 
 
 # -- phase 6: serving qwen2-1.5b at full width -----------------------------
@@ -3618,7 +4106,8 @@ def load_port():
     from repro_torch.checkpoint import load_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.configs.feds3a_cnn import CNNConfig
-    from repro_torch.core import REFERENCE_CHURN, ParamLayout, baselines
+    from repro_torch.core import (REFERENCE_CHURN, ParamLayout, TrafficModel,
+                                  baselines)
     from repro_torch.core import fleet_ckpt
     from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
     from repro_torch.core.sparse_comm import flatten_tree
@@ -3646,13 +4135,35 @@ def load_port():
         serve_batch=serve_batch, make_prefill_step=make_prefill_step,
         make_serve_step=make_serve_step,
         tree_from_numpy=tree_from_numpy, tree_to_numpy=tree_to_numpy,
-        REFERENCE_CHURN=REFERENCE_CHURN, fleet_ckpt=fleet_ckpt,
+        REFERENCE_CHURN=REFERENCE_CHURN, TrafficModel=TrafficModel,
+        fleet_ckpt=fleet_ckpt,
         make_lm_dataset=make_lm_dataset, tree_leaves=tree_leaves,
         flatten_tree=flatten_tree, layers=layers, lm_loss=lm_loss,
         value_and_grad=value_and_grad, make_train_step=make_train_step,
         adam_init=adam_init, run_lm=run_lm, load_checkpoint=load_checkpoint,
         fl_checkpoint_tree=fl_checkpoint_tree,
         leaves_with_path=leaves_with_path, path_name=path_name)
+
+
+def _lm_phases(torch, port, ops, ref, comm_mod, lm_held, lmc_held,
+               l0c_twin):
+    """Phases 5h and 5i, with 5i's CPU twin already running."""
+    log(f"phase 5h: the FL language-model path ({LM_ARCH} at full width, "
+        f"{LM_LAYERS} of 28 layers, bf16 compute; L0 reduced widths, float32, "
+        "card vs CPU)")
+    t0 = time.perf_counter()
+    lm_res = lm_path(torch, port, ops, lm_held)
+    log(f"  phase 5h took {time.perf_counter() - t0:.1f} s")
+    log(f"phase 5i: the chunked, faulted, checkpointed FL LM ({LM_ARCH} at "
+        f"full width, {LM_LAYERS} layers, {LC_CHUNKS} chunks of ceil(N / "
+        f"{LC_CHUNKS}), csr + EF, 5% crashes and lost uploads, "
+        f"{LC_ROUNDS} rounds; L0c card vs CPU and resumed; F2 "
+        "fl_large_model)")
+    t0 = time.perf_counter()
+    lmc_res = lm_chunked(torch, port, ops, ref, comm_mod, lmc_held,
+                         l0c_twin)
+    log(f"  phase 5i took {time.perf_counter() - t0:.1f} s")
+    return lm_res, lmc_res
 
 
 def main():
@@ -3663,6 +4174,8 @@ def main():
         return cpu_fault_traces(sys.argv[2])
     if sys.argv[1:2] == ["--lm-l0-cpu"]:
         return lm_l0_cpu(sys.argv[2])
+    if sys.argv[1:2] == ["--lm-l0c-cpu"]:
+        return l0c_cpu(sys.argv[2])
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     if not torch.cuda.is_available():
@@ -3734,6 +4247,17 @@ def main():
             shapes
     lm_held |= {(kern, n, c) for n, c in MPCE_WIDE_SHAPES
                 for kern in ("masked_pseudo_ce", "masked_pseudo_ce_bwd")}
+    lmc_plans = lc_plans(port, comm_mod)
+    log(f"phase 3 (FL LM chunks): csr_compact and staleness_agg at phase "
+        f"5i's chunk widths ({', '.join(lmc_plans)}) at K = {list(LC_KS)}")
+    lmc_shapes, lmc_held = check_lm_chunk_widths(
+        torch, ops, ref, comm_mod, port, dev,
+        torch.Generator(device=dev).manual_seed(1), flushes, lmc_plans)
+    for name, shapes in lmc_shapes.items():
+        next(k for k in kernels if k["name"] == name)["other_shapes"] += \
+            shapes
+    lmc_held |= {(kern, n, c) for n, c in MPCE_WIDE_SHAPES
+                 for kern in ("masked_pseudo_ce", "masked_pseudo_ce_bwd")}
     del flushes
     s_serve = max(len(p) for p in serve_prompts(
         np, get_config(SERVE_ARCH).vocab_size))
@@ -3807,12 +4331,14 @@ def main():
     log(f"  phase 5g took {time.perf_counter() - t0:.1f} s")
     for name, res in dense_res["runs"].items():
         paths[f"dense {name}"] = res
-    log(f"phase 5h: the FL language-model path ({LM_ARCH} at full width, "
-        f"{LM_LAYERS} of 28 layers, bf16 compute; L0 reduced widths, float32, "
-        "card vs CPU)")
-    t0 = time.perf_counter()
-    lm_res = lm_path(torch, port, ops, lm_held)
-    log(f"  phase 5h took {time.perf_counter() - t0:.1f} s")
+    # phase 5i's CPU twin starts with 5h: 5h's wall time is the card's, and
+    # the twin, 5i's longest part, takes up the host's spare cores
+    l0c_twin = start_l0c_twin()
+    try:
+        lm_res, lmc_res = _lm_phases(torch, port, ops, ref, comm_mod,
+                                     lm_held, lmc_held, l0c_twin)
+    finally:
+        stop_l0c_twin(l0c_twin)
     for k in kernels:
         for sh in k["other_shapes"]:
             key = (k["name"], *sh["shape"])
@@ -3821,6 +4347,15 @@ def main():
                     name: sum(c for *kk, c in r.get("launches_by_shape", ())
                               if tuple(kk) == key)
                     for name, r in lm_res["runs"].items()}
+
+    for k in kernels:
+        for sh in k["other_shapes"]:
+            if "FL LM chunk" in sh.get("case", ""):
+                key = (k["name"], *sh["shape"])
+                sh["lm_chunked_launches"] = {
+                    name: sum(c for *kk, c in r.get("launches_by_shape", ())
+                              if tuple(kk) == key)
+                    for name, r in lmc_res["runs"].items()}
 
     log(f"phase 6: serving {SERVE_ARCH} at full width ({SERVE_REQUESTS} "
         f"requests, bucket {SERVE_BUCKET}, max_new {SERVE_NEW})")
@@ -3853,7 +4388,8 @@ def main():
                       base_parity, "chunked_card_vs_cpu": chunk_parity,
                       "fleet": fleet_res, "faults": fault_res,
                       "dense_store": dense_res, "every_k_calls": every_k,
-                      "lm_path": lm_res, "lm_train": lm_train_res,
+                      "lm_path": lm_res, "lm_chunked": lmc_res,
+                      "lm_train": lm_train_res,
                       "gpu": smi}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

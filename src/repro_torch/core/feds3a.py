@@ -110,8 +110,9 @@ from repro_torch.core.sparse_comm import (CSR_FORMATS, MALFORM_KINDS,
                                           WireIntegrityError,
                                           csr_page_decode, flatten_tree,
                                           unflatten_like)
-from repro_torch.models.cnn import cnn_template, dropout_masks
+from repro_torch.models.cnn import dropout_masks
 from repro_torch.optimizer import adam_init
+from repro_torch.tree import tree_map
 from repro_torch.weights import params_from_numpy
 
 ENGINES = ("sequential", "batched", "sharded")
@@ -180,14 +181,12 @@ class FedS3AConfig:
     device: str = "cuda"                # port only: where the round runs
 
 
-def _resolve_layout(cfg):
+def _resolve_layout(cfg, template):
     """``chunk_size`` / ``param_layout`` / ``layer_keep_frac`` resolved
-    to the run's ``ParamLayout``, or None for the flat path, which a
-    layout of one chunk without overrides is (``feds3a.py:414-433``)."""
-    if cfg.model is not None and (cfg.chunk_size
-                                  or cfg.param_layout is not None):
-        raise NotImplementedError(_lm_later("chunk_size / param_layout (the "
-                                            "chunked LM path)"))
+    to the run's ``ParamLayout`` over the model's parameter ``template``
+    (the adapter's: the CNN's dict, or the LM's nested tree), or None for
+    the flat path, which a layout of one chunk without overrides is
+    (``feds3a.py:414-433``)."""
     layout = cfg.param_layout
     if layout is None:
         if cfg.layer_keep_frac and not cfg.chunk_size:
@@ -197,8 +196,7 @@ def _resolve_layout(cfg):
                 "leaf-aligned chunks")
         if not cfg.chunk_size:
             return None
-        cnn = cfg.cnn if cfg.cnn is not None else CNN_CONFIG
-        layout = ParamLayout.from_template(cnn_template(cnn), cfg.chunk_size,
+        layout = ParamLayout.from_template(template, cfg.chunk_size,
                                            overrides=cfg.layer_keep_frac)
     return None if layout.is_flat else layout
 
@@ -215,8 +213,6 @@ def _lm_later(what):
 LM_LATER = (
     ("base_store='dense'", lambda c: c.base_store == "dense"),
     ("client_store='paged'", lambda c: c.client_store == "paged"),
-    ("traffic= (faults)", lambda c: c.traffic is not None),
-    ("checkpoint_dir=", lambda c: c.checkpoint_dir is not None),
     ("wire_format='dense_masked'", lambda c: c.wire_format == "dense_masked"),
     ("sparse_comm=False", lambda c: not c.sparse_comm),
     ("q_dtype='fp16'", lambda c: c.wire_format == "csr_q"
@@ -225,11 +221,11 @@ LM_LATER = (
 )
 
 
-def _check_slice(cfg):
+def _check_slice(cfg, template):
     """Refuse invalid config values (``ValueError``, as the reference
     does), then every value this slice does not port, naming the
     ROADMAP.md queue ("Still to port") that brings it. Returns the
-    resolved ``ParamLayout`` (None: the flat path)."""
+    ``ParamLayout`` resolved over ``template`` (None: the flat path)."""
     if cfg.engine not in ENGINES + (None,):
         raise ValueError(f"engine must be one of {ENGINES} or None, got "
                          f"{cfg.engine!r}")
@@ -254,7 +250,7 @@ def _check_slice(cfg):
             "checkpoint_dir requires base_store='versioned': the checkpoint "
             "snapshots the reconstruction ring + chain; the legacy dense "
             "per-client base state has no serialized form")
-    layout = _resolve_layout(cfg)
+    layout = _resolve_layout(cfg, template)
     if layout is not None:
         if not (cfg.sparse_comm and cfg.wire_format in CSR_FORMATS):
             raise ValueError(
@@ -350,24 +346,26 @@ class FedS3ATrainer:
         {name: array} for the CNN, the LM's nested dicts and lists; the
         tests pass the reference's own initial weights."""
         self.cfg = config or FedS3AConfig()
-        self.layout = _check_slice(self.cfg)
+        cfg = self.cfg
+        self.cnn = cfg.cnn if cfg.cnn is not None else CNN_CONFIG
+        # one adapter owns every model closure: the paper CNN's
+        # pseudo_label factories, or a model-zoo ModelConfig's LM as a
+        # final-token classifier (``feds3a.py:298-341``); the chunk layout
+        # is resolved over its parameter template
+        self.adapter = make_adapter(
+            cfg.model if cfg.model is not None else self.cnn,
+            batch_size=cfg.batch_size, threshold=cfg.threshold, l1=cfg.l1,
+            epochs=cfg.epochs)
+        self.layout = _check_slice(cfg, self.adapter.template)
         self.chunked = self.layout is not None
-        self.device = _resolve_device(self.cfg.device)
+        self.device = _resolve_device(cfg.device)
         # the reference is float32 throughout: no TF32 in products or convs
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.data = data
         self.M = len(data["clients"])
         self.paged = self.cfg.client_store == "paged"
-        self.cnn = self.cfg.cnn if self.cfg.cnn is not None else CNN_CONFIG
-        cfg = self.cfg
         B = cfg.batch_size
-        # one adapter owns every model closure: the paper CNN's
-        # pseudo_label factories, or a model-zoo ModelConfig's LM as a
-        # final-token classifier (``feds3a.py:298-341``)
-        self.adapter = make_adapter(
-            cfg.model if cfg.model is not None else self.cnn, batch_size=B,
-            threshold=cfg.threshold, l1=cfg.l1, epochs=cfg.epochs)
         self.engine = select_engine(self.cfg.engine, self.device,
                                     self.adapter.param_count(),
                                     self.cfg.batched)
@@ -1197,12 +1195,6 @@ class FedS3ATrainer:
         encoded once each, by the writer, into a cache only it touches
         while a write is in flight."""
         keep = (lambda t: t.clone()) if defer else (lambda t: t)
-
-        def tree(x):
-            if isinstance(x, dict):
-                return {k: tree(v) for k, v in x.items()}
-            return keep(x)
-
         cache, new_logs = self._log_pack, self.logs[len(self._log_pack):]
 
         def logs_bytes():
@@ -1216,7 +1208,7 @@ class FedS3ATrainer:
                 "seed_rng": self.seed_rng.bit_generator.state,
                 "gen": self.gen.get_state(),
                 "global_flat": keep(self._global_flat),
-                "server_opt": tree(self.server_opt),
+                "server_opt": tree_map(keep, self.server_opt),
                 "participation": self.participation.copy(),
                 "ef": self._ef_state(defer),
             },
@@ -1289,10 +1281,15 @@ class FedS3ATrainer:
         self._gp_tree = None
 
         def tree(live, saved):
-            if isinstance(live, dict):
-                if set(live) != set(saved):
+            # the server's Adam state: flat rows on the stacked engines, the
+            # model's tree (dicts and lists) on the sequential one
+            if isinstance(live, (dict, list)):
+                if type(saved) is not type(live) or len(saved) != len(live) \
+                        or isinstance(live, dict) and set(live) != set(saved):
                     raise ValueError("checkpoint server_opt has another "
                                      "structure than this trainer's")
+                if isinstance(live, list):
+                    return [tree(a, b) for a, b in zip(live, saved)]
                 return {k: tree(live[k], saved[k]) for k in live}
             return torch.from_numpy(np.asarray(saved)).to(
                 device=self.device, dtype=live.dtype).reshape(live.shape)

@@ -240,7 +240,7 @@ def test_list_indices_order_as_jax_does():
 
 
 @pytest.mark.parametrize("override", [
-    pytest.param({"chunk_size": 4096}, id="chunked"),
+    pytest.param({"wire_format": "csr_q", "q_dtype": "fp16"}, id="fp16"),
     pytest.param({"base_store": "dense"}, id="dense-store"),
     pytest.param({"client_store": "paged", "error_feedback": True},
                  id="paged"),

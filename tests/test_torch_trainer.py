@@ -116,11 +116,12 @@ def test_default_device_is_the_card():
                   "engine": "sharded"}, id="override2"),
     pytest.param({"base_store": "dense", "engine": "sharded"},
                  id="override3"),
-    pytest.param({"model": "qwen2-1.5b", "chunk_size": 64},
-                 id="override9")])
+    pytest.param({"model": "qwen2-1.5b", "chunk_size": 64,
+                  "client_store": "paged"}, id="override9")])
 def test_outside_the_slice_raises(override):
     if "model" in override:
-        # the FL language-model path is ported; its chunked form is not
+        # the FL language-model path is ported, chunked too; on the paged
+        # client store it is not
         from repro_torch.configs import get_config, load_all
         load_all()
         override = dict(override,

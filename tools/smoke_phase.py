@@ -4,11 +4,16 @@ loop than the whole script while working on one path; the whole script
 stays the proof.
 
     python3 tools/smoke_phase.py lm [--out FILE.json]
+    python3 tools/smoke_phase.py lmc [--out FILE.json]
     python3 tools/smoke_phase.py train [--out FILE.json]
 
 ``lm``: the FL language-model checks: phase 3's vocabulary-wide
 ``masked_pseudo_ce`` kernels and the compaction kernels at the LM's flat
 widths, then phase 5h (L2, L1, L0 against its CPU twin).
+``lmc``: the chunked, faulted, checkpointed FL language model: phase 3's
+vocabulary-wide ``masked_pseudo_ce`` kernels and the compaction kernels at
+phase 5i's chunk widths, then phase 5i (LC, LCs, L0c against its CPU twin
+and resumed, F2 the ``fl_large_model`` launcher).
 ``train``: phase 6b, LM training (T0 flash against ref and microbatches,
 T0c card against CPU, T1 qwen2-1.5b at full width and depth, F1 the
 ``launch/train.py`` CLI), after phase 5's batched + csr path, whose run
@@ -51,6 +56,31 @@ def run_lm(torch, cs, port):
             "lm_path": res}
 
 
+def run_lmc(torch, cs, port):
+    from repro_torch.core import sparse_comm as comm_mod
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    flushes = cs.l2_flushes(torch, dev)
+    t0 = time.perf_counter()
+    fwd, bwd = cs.check_masked_pseudo_ce_wide(
+        torch, ops, ref, dev, torch.Generator(device=dev).manual_seed(0),
+        flushes)
+    shapes, held = cs.check_lm_chunk_widths(
+        torch, ops, ref, comm_mod, port, dev,
+        torch.Generator(device=dev).manual_seed(1), flushes,
+        cs.lc_plans(port, comm_mod))
+    del flushes
+    torch.cuda.empty_cache()
+    held |= {(k, n, c) for n, c in cs.MPCE_WIDE_SHAPES
+             for k in ("masked_pseudo_ce", "masked_pseudo_ce_bwd")}
+    cs.log(f"phase 3 (FL LM chunks) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res = cs.lm_chunked(torch, port, ops, ref, comm_mod, held)
+    cs.log(f"phase 5i took {time.perf_counter() - t0:.1f} s")
+    return {"wide_forward": fwd, "wide_backward": bwd,
+            "lm_chunk_widths": shapes, "lm_chunked": res}
+
+
 def run_train(torch, cs, port, smi):
     import numpy as np
     from repro_torch.kernels import ops
@@ -60,7 +90,7 @@ def run_train(torch, cs, port, smi):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("phase", choices=("lm", "train"))
+    ap.add_argument("phase", choices=("lm", "lmc", "train"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -81,6 +111,8 @@ def main():
     port = cs.load_port()
     if args.phase == "lm":
         res = run_lm(torch, cs, port)
+    elif args.phase == "lmc":
+        res = run_lmc(torch, cs, port)
     else:
         res = run_train(torch, cs, port, smi)
     if args.out:
