@@ -34,9 +34,11 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    and every chunk width, each K's calls back to back; and the same four
    at (K, N) for every row count a dense-store distribution gives them (1
    and 6-10); then the FL language-model path's: the vocabulary-wide
-   ``masked_pseudo_ce`` kernels (one block a row) forward, mask and
-   backward bit for bit at (16, 151936), (96, 151936) and (7, 1025),
-   confident and tied rows planted, the two timed alone beside
+   ``masked_pseudo_ce`` kernels (a cluster of 6 blocks a row) forward,
+   mask and backward bit for bit at (16, 151936), (96, 151936), (1,
+   151936), (7, 1025) (rows not 16-byte aligned) and (3, 600000) (slices
+   read from device memory in each pass), confident rows, ties and ties
+   across a slice boundary planted, the first two timed alone beside
    ``torch.log_softmax`` / ``torch.softmax``; ``csr_compact`` at (1, N)
    and (6, N) and ``staleness_agg`` at (1-6, N) at phase 5h's flat widths
    (up to N = 420,566,528: 2.52e9 elements in six rows); and at phase 5i's
@@ -2753,8 +2755,11 @@ L0_OUTSIDE_SHARE = 4e-3
 LM_L0_THREADS = 6             # the CPU twin's intra-op threads (of 8 cores)
 LM_PEAK_CUT = 70 * 10**9      # L2's peak past 70 GB: cut to 2 layers
 # (rows, C) the vocabulary-wide masked_pseudo_ce kernels are held at: a
-# client or server batch, six clients' batches at once, an odd width
-MPCE_WIDE_SHAPES = ((LM_B, LM_V), (6 * LM_B, LM_V), (7, 1025))
+# client or server batch, six clients' batches at once, one row, an odd
+# width (rows not 16-byte aligned), a width whose slices do not fit in
+# shared memory (ops.wide_plan(c)["on_chip"] False: read in each pass)
+MPCE_WIDE_SHAPES = ((LM_B, LM_V), (6 * LM_B, LM_V), (1, LM_V), (7, 1025),
+                    (3, 600_000))
 MPCE_WIDE_TIMED = ((LM_B, LM_V), (6 * LM_B, LM_V))
 
 
@@ -2776,15 +2781,22 @@ def l0_config(port):
                                             dtype="float32")
 
 
-def _wide_logits(torch, gen, dev, n, c):
+def _wide_logits(torch, bounds, gen, dev, n, c):
     """(n, c) logits: random rows; every other row confident (one logit
-    raised 20 above the row's max, so its softmax max passes theta); every
-    7th with its maximum tied at a later column."""
+    raised 20 above the row's max, so its softmax max passes theta); rows
+    1, 8, ... with their maximum tied at the last column; rows 3, 10, ...
+    with a new maximum tied across the first slice boundary of ``bounds``
+    (``ops.wide_plan(c)["bounds"]``: the last column of slice 0, the first
+    of slice 1), and rows 5, 12, ... across the last boundary."""
     x = torch.randn((n, c), generator=gen, device=dev) * 3
     rows = torch.arange(0, n, 2, device=dev)
     cols = torch.randint(0, c, (len(rows),), generator=gen, device=dev)
     x[rows, cols] = x[rows].max(dim=1).values + 20.0
-    x[::7, c - 1] = x[::7].max(dim=1).values
+    x[1::7, c - 1] = x[1::7].max(dim=1).values
+    for r0, b in ((3, bounds[1][0]), (5, bounds[-1][0])):
+        top = x[r0::7].max(dim=1).values + 1.0
+        x[r0::7, b - 1] = top
+        x[r0::7, b] = top
     return x
 
 
@@ -2808,15 +2820,17 @@ def _sum_report(torch, logits, rows):
 
 
 def check_masked_pseudo_ce_wide(torch, ops, ref, dev, gen, flushes):
-    """Phase 3, the vocabulary-wide kernels (C > 1024, one block a row):
+    """Phase 3, the vocabulary-wide kernels (C > 1024, a cluster a row):
     forward (loss and mask) and backward, through autograd and alone, bit
     for bit against the float64-summed plain versions on the same tensors,
-    confident rows planted; then forward alone and backward alone timed at
-    the FL LM's shapes, beside the plain versions and the library calls
+    confident rows and ties across slice boundaries planted; then
+    forward alone and backward alone timed at the FL LM's shapes, beside
+    the plain versions and the library calls
     (``torch.log_softmax(x).max(1)``, ``torch.softmax``)."""
     fwd, bwd = [], []
     for n, c in MPCE_WIDE_SHAPES:
-        logits = _wide_logits(torch, gen, dev, n, c)
+        logits = _wide_logits(torch, ops.wide_plan(c)["bounds"], gen, dev,
+                              n, c)
         g = torch.rand((n,), generator=gen, device=dev)
         loss_k, mask_k, grad_k = _mpce_call(torch, ops.masked_pseudo_ce,
                                             None, logits, g)
@@ -2830,9 +2844,12 @@ def check_masked_pseudo_ce_wide(torch, ops, ref, dev, gen, flushes):
                 "grad (alone)": _same_bits(torch, grad_d, grad_p)}
         masked = int(mask_k.sum())
         nonzero = int((grad_d != 0).any(dim=1).sum())
-        log(f"  masked_pseudo_ce ({n}, {c}), one block a row: same bits as "
-            f"plain {same}; {masked} of {n} rows masked in, {nonzero} "
-            f"gradient rows non-zero")
+        plan = ops.wide_plan(c)
+        log(f"  masked_pseudo_ce ({n}, {c}), a cluster of {plan['cluster']} "
+            f"blocks a row, slices of {plan['slice']} columns "
+            f"({plan['smem_bytes']} B, on chip {plan['on_chip']}): same "
+            f"bits as plain {same}; {masked} of {n} rows masked in, "
+            f"{nonzero} gradient rows non-zero")
         if not all(same.values()):
             bad = ((loss_k.detach() != loss_p) | (grad_d != grad_p).any(1)
                    | (grad_k != grad_p).any(1)).nonzero()[:, 0].tolist()
@@ -2840,7 +2857,9 @@ def check_masked_pseudo_ce_wide(torch, ops, ref, dev, gen, flushes):
                 log(f"    {line}")
         check(all(same.values()), f"masked_pseudo_ce ({n}, {c}): the wide "
               f"kernels differ from the plain versions' bits: {same}")
-        check(0 < masked < n and nonzero == masked,
+        # both sides of theta where there are two rows (row 0 is confident)
+        check((0 < masked < n if n > 1 else masked == 1)
+              and nonzero == masked,
               f"masked_pseudo_ce ({n}, {c}): {masked} rows masked in, "
               f"{nonzero} non-zero gradient rows")
         if (n, c) not in MPCE_WIDE_TIMED:

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exports plain C launch functions that return the
 ``cudaError_t`` of their launch. All sources compile in parallel, one nvcc
 per file, at the first call that needs a kernel, into
 ``build/repro_torch_kernels/<hash>/`` at the repository root, where
-``<hash>`` covers the sources and the flags: a changed source builds anew,
-an unchanged one loads what is there. Nothing here runs at import time.
+``<hash>`` covers the sources, the headers they share (``csrc/*.cuh``) and
+the flags: a changed source or header builds anew, an unchanged tree loads
+what is there. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -69,6 +70,8 @@ def build_dir():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 

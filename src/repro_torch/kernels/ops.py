@@ -30,6 +30,11 @@ CSRQ_EPOCHS = 1 << 31     # epochs an absmax word's bits 32-62 hold
 Q_DTYPES = {"int8": torch.int8, "fp16": torch.float16}
 FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # -> the kernel's bf16 flag
 FLASH_HEAD_DIMS = (64, 128)
+# the vocabulary-wide masked_pseudo_ce kernels (csrc/masked_pseudo_ce.cu)
+WIDE_CLUSTER = 6                  # kCluster: blocks a row
+WIDE_THREADS = 512                # kWideThreads: threads a block
+WIDE_ALIGN = 4                    # kAlign: a slice is a multiple of 4 floats
+WIDE_ON_CHIP = 227 * 1024 - 1024  # kOnChipBytes: a slice's copy at most
 
 
 # (wrapper, rows, width) -> launches; width is the row's parameter count
@@ -82,6 +87,24 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def wide_plan(c, cluster=WIDE_CLUSTER):
+    """How the vocabulary-wide kernels (``c > MPCE_BWD_MAX_C``) split a
+    row of ``c`` columns: ``cluster`` blocks (one thread-block cluster a
+    row), block k owning columns ``bounds[k]`` (``slice`` columns each,
+    ``ceil(c / cluster)`` rounded up to ``WIDE_ALIGN``, the last block the
+    rest), and the ``smem_bytes`` of dynamic shared memory a block's copy
+    of its slice takes; ``on_chip`` when that fits in ``WIDE_ON_CHIP``,
+    else each pass reads the slice from device memory. The kernels are
+    built at ``WIDE_CLUSTER``; another ``cluster`` describes a copy built
+    at that size (``tools/wide_timeline.py --cluster``)."""
+    q = -(-(-(-c // cluster)) // WIDE_ALIGN) * WIDE_ALIGN
+    smem = 4 * (q + WIDE_ALIGN)
+    return {"cluster": cluster, "slice": q,
+            "bounds": [(min(c, k * q), min(c, (k + 1) * q))
+                       for k in range(cluster)],
+            "smem_bytes": smem, "on_chip": smem <= WIDE_ON_CHIP}
+
+
 def _masked_pseudo_ce_fwd(logits, threshold):
     _check("logits", logits, 2)
     if not _same_device(logits):
@@ -120,9 +143,10 @@ def masked_pseudo_ce(logits, threshold):
     """Eq. 5 (log-space mask): logits (N, C) f32 -> (loss (N,), mask (N,)).
     Differentiable in ``logits``; the backward is
     ``masked_pseudo_ce_grad``. Above ``MPCE_BWD_MAX_C`` classes both
-    directions launch the one-block-a-row kernels, whose bits are the
-    float64-summed plain versions'; their launches count under the same
-    names, at their own (rows, C) in ``LAUNCHES_BY_SHAPE``."""
+    directions launch the kernels that take a thread-block cluster a row
+    (``wide_plan``), whose bits are the float64-summed plain versions';
+    their launches count under the same names, at their own (rows, C) in
+    ``LAUNCHES_BY_SHAPE``."""
     return _MaskedPseudoCE.apply(logits.contiguous(), threshold)
 
 
@@ -130,8 +154,9 @@ def masked_pseudo_ce_grad(logits, mask, g):
     """Backward of Eq. 5 (``repro/kernels/ops.py:51-58``): logits (N, C),
     mask (N,), g (N,) f32 -> ``(softmax - onehot(argmax)) * (mask * g)``
     (N, C), ties to the first index. The kernel gives the bits that
-    ``ref.masked_pseudo_ce_grad`` gives on the card; it takes C <= 1024,
-    where torch.softmax runs the arithmetic it repeats."""
+    ``ref.masked_pseudo_ce_grad`` gives on the card: up to 1024 classes
+    torch.softmax's arithmetic, above it a cluster a row (``wide_plan``)
+    summing in float64."""
     _check("logits", logits, 2)
     _check("mask", mask, 1)
     _check("g", g, 1)

@@ -153,3 +153,21 @@ def test_every_launch_function_is_exported_by_its_source():
     assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == \
         sorted(build.SOURCES)
     assert Path(build.build_dir()).parent == build.BUILD_ROOT
+
+
+def test_build_dir_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A change to a header the sources include (``csrc/*.cuh``) builds
+    every kernel anew, as a change to a source does."""
+    headers = sorted(build.CSRC.glob("*.cuh"))
+    assert [h.name for h in headers] == ["mbarrier.cuh"]
+    for name in ("flash_attention", "masked_pseudo_ce"):
+        assert '#include "mbarrier.cuh"' in \
+            (build.CSRC / f"{name}.cu").read_text()
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build.CSRC.glob("*.cu*"):
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build.build_dir()
+    (csrc / "mbarrier.cuh").write_text(headers[0].read_text() + "\n")
+    assert build.build_dir() != before

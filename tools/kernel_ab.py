@@ -22,16 +22,26 @@ flush, which leaves no dirty line to write back):
 - ``csr_quant`` at the batched upload (6, cap) and the sequential upload
   (1, cap), int8 and fp16, on ``csr_compact`` payloads: the same, the
   bound counting the stored prefix read and every output slot written;
+- the vocabulary-wide ``masked_pseudo_ce`` kernels at the FL LM's (16,
+  151936) and (96, 151936), forward alone and backward alone: the same
+  as ``csr_compact``, the bound counting the logits read once and the
+  outputs written once;
 - the six FL paths of ``chip_smoke.py`` phase 5: accuracy, ACO, seconds
-  per round and launch counts.
+  per round and launch counts;
+- phase 5h's L2 (qwen2-1.5b at full width, 2 layers, batched + csr, 3
+  rounds): accuracy, ACO, rows the Eq. 5 mask kept each round, seconds
+  per round and launches by (kernel, rows, width).
 
 It fails unless the change gives the parent's bits: loss, mask and
 gradient of ``masked_pseudo_ce`` at (600, 9), (100, 9), (4096, 9) and
-(300, 40) with tie and at-threshold rows; q, offsets, block counts and
-scales of ``csr_quant`` at both shapes in both types; and every path's
-accuracy and ACO; and unless the launch counts keep their meaning
-(``csr_quant`` and ``csr_compact`` at ``chip_smoke.PER_ROUND``'s counts a
-round on both trees). It writes ``<out>.json`` and prints a summary.
+(300, 40) with tie and at-threshold rows, and at every shape of
+``chip_smoke.MPCE_WIDE_SHAPES`` (ties across the change's slice
+boundaries planted; gradient through autograd and alone); q, offsets,
+block counts and scales of ``csr_quant`` at both shapes in both types;
+and every path's accuracy and ACO, and L2's rows kept; and unless the
+launch counts keep their meaning (``csr_quant`` and ``csr_compact`` at
+``chip_smoke.PER_ROUND``'s counts a round on both trees, L2's launches by
+shape equal). It writes ``<out>.json`` and prints a summary.
 """
 from __future__ import annotations
 
@@ -59,7 +69,15 @@ def _digest(t):
     return f"{t.dtype} {tuple(t.shape)} {hashlib.sha256(data).hexdigest()}"
 
 
-def run_tree(tree, out):
+def wide_bounds():
+    """The change's slices of each wide shape's row, {c: bounds}: both
+    trees' wide logits plant their ties at the same columns."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import ops
+    return {c: ops.wide_plan(c)["bounds"] for _, c in cs.MPCE_WIDE_SHAPES}
+
+
+def run_tree(tree, out, bounds):
     """Measure one tree; write ``out`` (JSON, with digests of the outputs
     the trees must share)."""
     sys.path.insert(0, str(Path(tree).resolve() / "src"))
@@ -89,6 +107,27 @@ def run_tree(tree, out):
                 torch, lambda: cs._mpce_call(torch, ops.masked_pseudo_ce,
                                              None, logits, g), reps=200),
                 "bound_ms": b, "bound_by": by})
+
+    wide = []
+    for n, c in cs.MPCE_WIDE_SHAPES:
+        logits = cs._wide_logits(torch, bounds[str(c)], gen, dev, n, c)
+        g = torch.rand((n,), generator=gen, device=dev)
+        loss, mask, grad = cs._mpce_call(torch, ops.masked_pseudo_ce, None,
+                                         logits, g)
+        alone = ops.masked_pseudo_ce_grad(logits, mask, g)
+        outputs[f"mpce {n}x{c}"] = [_digest(t)
+                                    for t in (loss, mask, grad, alone)]
+        if (n, c) in cs.MPCE_WIDE_TIMED:
+            for what, fn, nbytes, nops in (
+                    ("forward", lambda: ops.masked_pseudo_ce(logits,
+                                                             cs.THETA),
+                     4 * n * c + 8 * n, 4 * n * c),
+                    ("backward", lambda: ops.masked_pseudo_ce_grad(
+                        logits, mask, g), 8 * n * c + 8 * n, 7 * n * c)):
+                wide.append({"case": what, "shape": [n, c],
+                             **cs.memory_bound_call(torch, fn, nbytes, nops,
+                                                    flushes)})
+        del logits, g, loss, mask, grad, alone
 
     x6 = cs._delta(torch, gen, dev, 6, cs.N_FULL)
     thr6 = comm_mod.local_quantile_thresholds(x6, 0.2)
@@ -137,10 +176,21 @@ def run_tree(tree, out):
         paths[cs.path_name(engine, wire, ef)] = {
             "s_per_round": (time.perf_counter() - t0) / 3,
             "accuracy": res["metrics"]["accuracy"], "aco": res["aco"],
-            "launches": dict(ops.LAUNCHES)}
+            "launches": dict(ops.LAUNCHES),
+            "participants": [len(log.participants) for log in tr.logs]}
         del tr
+    torch.cuda.empty_cache()
+    port = cs.load_port()
+    lm = cs.lm_run(torch, port, ops, "L2", cs.lm_config(
+        port, cs.LM_LAYERS_CUT), "batched", "cuda", cs.LM_RUN["rounds"])
+    paths["L2 (FL LM)"] = {
+        **{k: lm.res[k] for k in ("s_per_round", "accuracy", "aco",
+                                  "mask_kept", "launches_by_shape")},
+        "launches": lm.res["launches"]}
+    del lm
     Path(out).write_text(json.dumps({
-        "tree": str(tree), "masked_pseudo_ce": mpce, "csr_compact": csr,
+        "tree": str(tree), "masked_pseudo_ce": mpce,
+        "masked_pseudo_ce_wide": wide, "csr_compact": csr,
         "csr_quant": quant, "paths": paths, "outputs": outputs}))
 
 
@@ -154,9 +204,10 @@ def main():
     ap.add_argument("--parent", help="checkout of the parent commit")
     ap.add_argument("--out", default=str(ROOT / "build" / "kernel_ab"))
     ap.add_argument("--tree", help=argparse.SUPPRESS)
+    ap.add_argument("--wide-bounds", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.tree:
-        return run_tree(args.tree, args.out)
+        return run_tree(args.tree, args.out, json.loads(args.wide_bounds))
     if not args.parent:
         ap.error("--parent is required")
     out = Path(args.out)
@@ -165,6 +216,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    bounds = json.dumps(wide_bounds())
     runs = []
     for i, (label, tree) in enumerate((("parent", args.parent),
                                        ("change", ROOT), ("change", ROOT),
@@ -172,7 +224,8 @@ def main():
         part = out.with_name(f"{out.name}_{i}_{label}.json")
         t0 = time.perf_counter()
         subprocess.run([sys.executable, __file__, "--tree", str(tree),
-                        "--out", str(part)], check=True)
+                        "--out", str(part), "--wide-bounds", bounds],
+                       check=True)
         runs.append((label, part, json.loads(part.read_text())))
         print(f"  {label} ({time.perf_counter() - t0:.1f} s)", flush=True)
         r = runs[-1][2]
@@ -181,7 +234,7 @@ def main():
                   f"device {m['device_ms']:.5f} ms in {m['device_ops']:g} "
                   f"ops, host {m['host_ms']:.5f} ms, bound "
                   f"{m['bound_ms']:.7f} ms", flush=True)
-        for key in ("csr_compact", "csr_quant"):
+        for key in ("masked_pseudo_ce_wide", "csr_compact", "csr_quant"):
             for m in r[key]:
                 print(f"    {key} {m['case']} {m['shape']} "
                       f"{m.get('q_dtype', '')}: device "
@@ -195,6 +248,9 @@ def main():
             print(f"    {name}: {p['s_per_round']:.4f} s per round, accuracy "
                   f"{p['accuracy']:.6f}, ACO {p['aco']:.6f}, launches "
                   f"{p['launches']}", flush=True)
+            if "mask_kept" in p:
+                print(f"      rows kept a round {p['mask_kept']}, launches "
+                      f"by shape {p['launches_by_shape']}", flush=True)
 
     failures = []
     base = runs[0]
@@ -210,6 +266,13 @@ def main():
                 failures.append(f"{label} {name}: accuracy / ACO "
                                 f"{p['accuracy']} / {p['aco']}, parent "
                                 f"{q['accuracy']} / {q['aco']}")
+            if p.get("mask_kept") != q.get("mask_kept") or \
+                    p.get("launches_by_shape") != q.get("launches_by_shape"):
+                failures.append(f"{label} {name}: rows kept "
+                                f"{p.get('mask_kept')}, launches by shape "
+                                f"{p.get('launches_by_shape')}; parent "
+                                f"{q.get('mask_kept')}, "
+                                f"{q.get('launches_by_shape')}")
             lp, lq = p["launches"], q["launches"]
             for k in lq:
                 if lp[k] != lq[k]:
@@ -223,17 +286,22 @@ def main():
     for label, _, r in runs:
         for path, p in r["paths"].items():
             for kernel, per_round in per_path.get(path, {}).items():
-                if p["launches"][kernel] != 3 * per_round:
+                # a rule is a count a round or a function of the round's K
+                want = sum(per_round(k) if callable(per_round) else per_round
+                           for k in p["participants"])
+                if p["launches"][kernel] != want:
                     failures.append(f"{label} {path}: {kernel} launched "
-                                    f"{p['launches'][kernel]} times in 3 "
-                                    f"rounds, not {per_round} a round")
+                                    f"{p['launches'][kernel]} times, not "
+                                    f"{want} (K a round "
+                                    f"{p['participants']})")
 
     def median(label, key, i, field):
         return statistics.median(r[key][i][field] for lb, _, r in runs
                                  if lb == label)
     summary = {"gpu": smi, "runs": [{"label": lb, "file": str(p)}
                                     for lb, p, _ in runs], "median": {}}
-    for key in ("masked_pseudo_ce", "csr_compact", "csr_quant"):
+    for key in ("masked_pseudo_ce", "masked_pseudo_ce_wide", "csr_compact",
+                "csr_quant"):
         for i, m in enumerate(runs[0][2][key]):
             what = f"{key} {m.get('case', '')} {m['shape']} " \
                 f"{m.get('q_dtype', '')}".replace("  ", " ").strip()

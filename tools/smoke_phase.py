@@ -6,6 +6,7 @@ stays the proof.
     python3 tools/smoke_phase.py lm [--out FILE.json]
     python3 tools/smoke_phase.py lmc [--out FILE.json]
     python3 tools/smoke_phase.py train [--out FILE.json]
+    python3 tools/smoke_phase.py wide [--out FILE.json]
 
 ``lm``: the FL language-model checks: phase 3's vocabulary-wide
 ``masked_pseudo_ce`` kernels and the compaction kernels at the LM's flat
@@ -14,6 +15,9 @@ widths, then phase 5h (L2, L1, L0 against its CPU twin).
 vocabulary-wide ``masked_pseudo_ce`` kernels and the compaction kernels at
 phase 5i's chunk widths, then phase 5i (LC, LCs, L0c against its CPU twin
 and resumed, F2 the ``fl_large_model`` launcher).
+``wide``: phase 3's vocabulary-wide ``masked_pseudo_ce`` kernels alone
+(bit for bit at every shape, timed at the FL LM's), with nvcc's register
+and spill report for their source.
 ``train``: phase 6b, LM training (T0 flash against ref and microbatches,
 T0c card against CPU, T1 qwen2-1.5b at full width and depth, F1 the
 ``launch/train.py`` CLI), after phase 5's batched + csr path, whose run
@@ -81,6 +85,18 @@ def run_lmc(torch, cs, port):
             "lm_chunk_widths": shapes, "lm_chunked": res}
 
 
+def run_wide(torch, cs):
+    from repro_torch.kernels import build, ops, ref
+    for line in build.build_log.get("masked_pseudo_ce", "").splitlines():
+        cs.log(f"  [masked_pseudo_ce] {line}")
+    dev = torch.device("cuda")
+    flushes = cs.l2_flushes(torch, dev)
+    fwd, bwd = cs.check_masked_pseudo_ce_wide(
+        torch, ops, ref, dev, torch.Generator(device=dev).manual_seed(0),
+        flushes)
+    return {"wide_forward": fwd, "wide_backward": bwd}
+
+
 def run_train(torch, cs, port, smi):
     import numpy as np
     from repro_torch.kernels import ops
@@ -90,7 +106,7 @@ def run_train(torch, cs, port, smi):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("phase", choices=("lm", "lmc", "train"))
+    ap.add_argument("phase", choices=("lm", "lmc", "train", "wide"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -113,6 +129,8 @@ def main():
         res = run_lm(torch, cs, port)
     elif args.phase == "lmc":
         res = run_lmc(torch, cs, port)
+    elif args.phase == "wide":
+        res = run_wide(torch, cs)
     else:
         res = run_train(torch, cs, port, smi)
     if args.out:
