@@ -48,6 +48,13 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    K = 6, 1 and ``FAULT_KS``, each K's calls back to back, one call of
    each timed at each distinct LC width (K = 6); the narrow ``masked_pseudo_ce``
    rows beside ``torch.log_softmax(x).max(1)`` and ``torch.softmax``;
+   then phase 5j's: ``masked_pseudo_ce`` on bf16 logits at (16, 151936)
+   and (16, 9), forward and backward, the gradient in bf16, bit for bit
+   (the narrow loss within 1e-6); ``sparse_delta`` at (6, N) and (1, N)
+   and fp16 ``csr_quant`` at (6, cap) and (1, cap) for the 2-layer N =
+   326,970,880, bit for bit row by row and timed; and at J0's width every
+   compaction kernel at 1-8 rows and the narrow ``masked_pseudo_ce`` at
+   (16, 512);
 4. run the port's sequential engine twice on the card and once on the CPU
    from the same initial weights (full-width paper CNN, dropout 0,
    2 rounds) and compare schedules, parameters, metrics and ACO; then
@@ -155,6 +162,16 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
    removed); F2, ``python -m repro_torch.launch.fl_large_model`` at its
    defaults; every (kernel, rows, width) launched must be one phase 3
    held;
+5j. the FL language model on the other wires and options, phase 5h's
+   setting run directly at 2 layers (N = 326,970,880), 3 rounds each: J1
+   batched + dense_masked, J2 sequential + fp16 csr_q + EF over 2 epochs,
+   J3 batched on the disabled channel over 2 epochs, each with its peak
+   reckoned from phase 5h's before it and measured after (under 70 GB)
+   and its exact launches by (kernel, rows, width); J0,
+   ``tests/test_torch_lm_trainer.py``'s lm-small run with each option
+   (dense_masked, disabled, fp16 csr_q + EF, 2 epochs) on both engines,
+   the card against the CPU in this process at that test's bounds; every
+   (kernel, rows, width) launched must be one phase 3 held;
 6. serve qwen2-1.5b at full width (random weights, bf16): 8 requests
    of 512-2048 tokens, bucket 2048, 32 new tokens, through
    ``serve_batch`` with the flash kernel, the counters showing exactly
@@ -184,7 +201,7 @@ numbers in PERF.md were taken on). Phases, each of which raises on failure:
 7. print one ``{"kernels": [...], "paths": ..., "serve": ...,
    "baselines": ..., "baselines_card_vs_cpu": ..., "chunked_card_vs_cpu":
    ..., "fleet": ..., "faults": ..., "dense_store": ..., "lm_path": ...,
-   "lm_chunked": ..., "lm_train": ...}`` line, then the
+   "lm_chunked": ..., "lm_options": ..., "lm_train": ...}`` line, then the
    result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -194,6 +211,7 @@ port's sources are missing. It imports nothing from the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -304,11 +322,13 @@ def profile_call(torch, fn, *, reps, flush=None):
     """One call of ``fn()`` on the card: its device time (the sum of its
     device ops' times in torch.profiler, ms), the device ops it runs and
     their names, each a mean over ``reps`` calls (``flush()`` before each,
-    its kernel ``flush.kernel`` left out, and the calls counted by its
-    launches: a trace can miss some; fails if the flush's kernel ran more
-    often than the flush, i.e. if a measured op shares its name); and its
-    host time (ms of host clock to issue one call, over ``reps`` calls
-    issued back to back without a synchronise)."""
+    its kernel ``flush.kernel`` left out; fails if the flush's kernel ran
+    more often than the flush, i.e. if a measured op shares its name); and
+    its host time (ms of host clock to issue one call, over ``reps`` calls
+    issued back to back without a synchronise). A trace can lose an event:
+    the calls are counted as the most launches of one op, the flush's or a
+    measured one's, and at most ``reps``, so that one lost event of either
+    kind does not divide by too few calls."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -327,8 +347,8 @@ def profile_call(torch, fn, *, reps, flush=None):
         flushed = sum(e.count for e in rows if e.key == flush.kernel)
         check(flushed <= reps, f"the flush's kernel ran {flushed} times "
               f"for {reps} flushes: a measured op shares its name")
-        calls = flushed or reps
         rows = [e for e in rows if e.key != flush.kernel]
+        calls = min(reps, max([flushed, *(e.count for e in rows)])) or reps
     names = {}
     for e in rows:
         names[e.key[:80]] = names.get(e.key[:80], 0) + e.count / calls
@@ -416,7 +436,8 @@ def check_masked_pseudo_ce(torch, ops, ref, dev, gen):
     and backward together: device time and ops (torch.profiler), host
     time, against the plain version's."""
     worst = 0.0
-    for n, c in ((600, 9), (100, 9), (4096, 9), (300, 40)):
+    # (16, 512): phase 5j's J0, the lm-small LM's client and server steps
+    for n, c in ((600, 9), (100, 9), (4096, 9), (300, 40), (LM_B, 512)):
         logits = _mpce_logits(torch, gen, dev, n, c)
         g = torch.rand((n,), generator=gen, device=dev)
         loss_k, mask_k, grad_k = _mpce_call(torch, ops.masked_pseudo_ce,
@@ -496,7 +517,8 @@ def _same_bits(torch, a, b):
     """Equal shape, type and bits (signed zeros included)."""
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
-    as_int = {torch.float32: torch.int32, torch.float16: torch.int16}
+    as_int = {torch.float32: torch.int32, torch.float16: torch.int16,
+              torch.bfloat16: torch.int16}
     if a.dtype in as_int:
         return torch.equal(a.view(as_int[a.dtype]), b.view(as_int[b.dtype]))
     return torch.equal(a, b)
@@ -2956,6 +2978,183 @@ def check_lm_width_compaction(torch, ops, ref, comm_mod, port, dev, gen,
     return shapes, held
 
 
+def _bf16_case_logits(torch, ops, gen, dev, n, c):
+    """(n, c) bf16 logits: above ``ops.MPCE_BWD_MAX_C`` classes
+    ``_wide_logits``' rows; below, random rows with every other one
+    confident and rows 1, 8, ... with their maximum tied at the last
+    column. The ties survive the rounding to bf16 (the tied values are
+    copies), and no row is planted at theta."""
+    if c > ops.MPCE_BWD_MAX_C:
+        x = _wide_logits(torch, ops.wide_plan(c)["bounds"], gen, dev, n, c)
+    else:
+        x = torch.randn((n, c), generator=gen, device=dev) * 3
+        rows = torch.arange(0, n, 2, device=dev)
+        cols = torch.randint(0, c, (len(rows),), generator=gen, device=dev)
+        x[rows, cols] = x[rows].max(dim=1).values + 20.0
+        x[1::7, c - 1] = x[1::7].max(dim=1).values
+    return x.to(torch.bfloat16)
+
+
+def check_masked_pseudo_ce_bf16(torch, ops, ref, dev, gen):
+    """Phase 3, bf16 logits (cast to float32 once by the wrapper): at
+    (16, 151936) (the wide kernels) and (16, 9), forward and backward,
+    through autograd and alone, against ``ref.masked_pseudo_ce_ref`` /
+    ``ref.masked_pseudo_ce_grad`` on the same bf16 tensors: the gradient
+    in bf16, mask and gradient bit for bit, the loss bit for bit on the
+    wide kernel and within 1e-6 on the narrow one (its sum order is not
+    torch's; phase 3's float32 rule)."""
+    for n, c in ((LM_B, LM_V), (LM_B, 9)):
+        x = _bf16_case_logits(torch, ops, gen, dev, n, c)
+        g = torch.rand((n,), generator=gen, device=dev)
+        loss_k, mask_k, grad_k = _mpce_call(torch, ops.masked_pseudo_ce,
+                                            None, x, g)
+        loss_p, mask_p = ref.masked_pseudo_ce_ref(x, THETA)
+        grad_p = ref.masked_pseudo_ce_grad(x, mask_k, g)
+        grad_d = ops.masked_pseudo_ce_grad(x, mask_k, g)
+        torch.cuda.synchronize()
+        err = float((loss_k - loss_p).detach().abs().max())
+        wide = c > ops.MPCE_BWD_MAX_C
+        same = {"loss": _same_bits(torch, loss_k.detach(), loss_p),
+                "mask": _same_bits(torch, mask_k, mask_p),
+                "grad (autograd)": _same_bits(torch, grad_k, grad_p),
+                "grad (alone)": _same_bits(torch, grad_d, grad_p)}
+        masked = int(mask_k.sum())
+        dtypes = (grad_k.dtype, grad_d.dtype, loss_k.dtype)
+        log(f"  masked_pseudo_ce bf16 ({n}, {c}): same bits as plain "
+            f"{same}, max |loss - plain| {err:.3g}; gradient dtypes "
+            f"{dtypes[:2]}; {masked} of {n} rows masked in")
+        if not wide:
+            del same["loss"]
+        check(all(same.values()) and err <= 1e-6,
+              f"masked_pseudo_ce bf16 ({n}, {c}) differs from the plain "
+              f"version: {same}, loss off by {err}")
+        check(dtypes == (torch.bfloat16, torch.bfloat16, torch.float32),
+              f"masked_pseudo_ce bf16 ({n}, {c}): dtypes {dtypes}")
+        check(0 < masked < n, f"masked_pseudo_ce bf16 ({n}, {c}): {masked} "
+              "rows masked in")
+
+
+def check_lm_option_widths(torch, ops, ref, comm_mod, port, dev, gen,
+                           flushes):
+    """Phase 3 for phase 5j. At the FL LM's 2-layer width N: ``sparse_delta``
+    at (6, N) (J1's upload) and (1, N) (its chain advance), top 20%, and
+    fp16 ``csr_quant`` at (6, cap) and (1, cap) (J2 quantizes one row at
+    a time) on a real ``csr_compact`` payload, cap = N / 2, bit for bit
+    against the plain versions row by row (rows are independent; (6, N)
+    is 1.96e9 elements, under 2**31), each timed; at J0's width
+    (lm-small, its absolute threshold: cap N) every compaction kernel a J0
+    run launches at every row count 1-8, back to back (``csr_compact``
+    at cap and rcap, ``csr_quant`` int8 and fp16, ``staleness_agg``,
+    ``sparse_delta`` top 20% and at explicit thresholds); the narrow
+    ``masked_pseudo_ce`` at J0's (16, 512) is held by
+    ``check_masked_pseudo_ce``. Returns ({kernel: [timed shape entries]},
+    held (kernel, rows, width))."""
+    shapes = {"sparse_delta": [], "csr_quant": []}
+    held = set()
+    n = lm_n(port, lm_config(port, LM_LAYERS_CUT))
+    nblk = -(-n // 512)
+    x6 = _delta(torch, gen, dev, 6, n)
+    for case, xx in (("J1 upload", x6), ("J1 chain advance",
+                                         x6[:1].clone())):
+        k = xx.shape[0]
+        mk, nk, tk = ops.sparse_delta_topfrac(xx, 0.2)
+        same = True
+        for r in range(k):
+            mp, np_ = ref.sparse_delta2d_ref(xx[r:r + 1], tk[r:r + 1])
+            same &= _same_bits(torch, mk[r:r + 1], mp) and \
+                torch.equal(nk[r:r + 1], np_)
+            del mp, np_
+        torch.cuda.synchronize()
+        log(f"  sparse_delta ({k}, {n}) top 20%: survivors "
+            f"{nk.sum(dim=1).tolist()}, bit-exact {same}")
+        check(same, f"sparse_delta ({k}, {n}): kernel differs from plain")
+        held.add(("sparse_delta", k, n))
+        del mk, nk
+        shapes["sparse_delta"].append({
+            "shape": [k, n], "case": f"FL LM {case} (phase 5j)", **_timed(
+                torch, lambda: ops.sparse_delta_batch(xx, tk),
+                lambda: ref.sparse_delta2d_ref(xx, tk),
+                8 * k * n + 4 * k * nblk + 4 * k, 2 * k * n, reps=10,
+                plain_reps=3, flushes=flushes)})
+    cap = comm_mod.SparseComm("p0.2").payload_capacity(n)
+    v6, i6, s6 = quant_payload(torch, ops, comm_mod, x6, 0.2, cap)
+    del x6
+    for case, (v, i, s) in (("J2 batched upload", (v6, i6, s6)),
+                            ("J2 upload, residual, chain", (
+                                v6[:1].clone(), i6[:1].clone(),
+                                s6[:1].clone()))):
+        k = v.shape[0]
+        got = ops.csr_quantize(v, i, s, n, q_dtype="fp16")
+        same = [True] * 4
+        for r in range(k):
+            want = _quant_plain(ref, v[r:r + 1], i[r:r + 1], s[r:r + 1], n,
+                                "fp16")
+            same = [a and _same_bits(torch, g_[r:r + 1], w)
+                    for a, g_, w in zip(same, got, want)]
+            del want
+        torch.cuda.synchronize()
+        log(f"  csr_quant fp16 ({k}, {cap}), n {n}: stored {s.tolist()}, "
+            f"bit-exact (q, offsets, counts, scales) {same}")
+        check(all(same), f"csr_quant fp16 ({k}, {cap}): kernel differs "
+              "from plain")
+        check(torch.equal(got[2].sum(dim=1, dtype=torch.int32), s),
+              f"csr_quant fp16 ({k}, {cap}): block counts do not sum to "
+              "stored")
+        held.add(("csr_quant", k, n))
+        del got
+        sh = {"shape": [k, cap], "n": n, "case": f"FL LM {case} (phase 5j)",
+              **csr_quant_call(torch, ops, v, i, s, n, "fp16", flushes),
+              "plain_ms": time_ms(torch, lambda: _quant_plain(
+                  ref, v[:1], i[:1], s[:1], n, "fp16"), reps=3) * k,
+              "plain_how": "row by row (k calls at (1, cap))",
+              "library_ms": None}
+        check(len(sh["device_op_names"]) == 1 and
+              sh["device_ops"] == 1, f"csr_quant fp16 ({k}, {cap}): "
+              f"{sh['device_ops']} device ops a call "
+              f"({sh['device_op_names']}), not 1")
+        shapes["csr_quant"].append(sh)
+    del v6, i6, s6
+    torch.cuda.empty_cache()
+    for name, timed in shapes.items():
+        for sh in timed:
+            log(f"  {name} {sh['shape']} ({sh['case']}): kernel "
+                f"{sh['ms']:.5f} ms (events {sh['event_ms']:.5f}), plain "
+                f"{sh['plain_ms']:.5f} ms, bound {sh['bound_ms']:.5f} ms "
+                f"({sh['bound_by']}), {sh['bound_ms'] / sh['ms']:.0%} of it")
+    # J0's width
+    n0 = lm_n(port, j0_config(port))
+    thr0 = J0_RUN["sparse_threshold"]
+    p = {"nc": n0, "cap": comm_mod.SparseComm(thr0).payload_capacity(n0),
+         "rcap": comm_mod.SparseComm(thr0).residual_capacity(n0),
+         "keep": 0.2, "rfrac": 0.25}
+    calls = []
+    for k in J0_KS:
+        inp = _chunk_inputs(torch, ref, comm_mod, gen, dev, p, k)
+        calls += _chunk_calls(torch, ops, ref, p, inp, "upload") + \
+            _chunk_calls(torch, ops, ref, p, inp, "residual")
+        top = {}
+
+        def topfrac(x=inp.x, top=top):
+            m, c, top["t"] = ops.sparse_delta_topfrac(x, 0.2)
+            return m, c
+
+        calls += [(f"sparse_delta top 20% ({k}, {n0})", topfrac,
+                   lambda x=inp.x, top=top: ref.sparse_delta2d_ref(
+                       x, top["t"])),
+                  (f"sparse_delta ({k}, {n0})",
+                   lambda x=inp.x, t=inp.thr: ops.sparse_delta_batch(x, t),
+                   lambda x=inp.x, t=inp.thr: ref.sparse_delta2d_ref(x, t))]
+        held |= {(kern, k, n0) for kern in ("csr_compact", "csr_quant",
+                                            "staleness_agg", "sparse_delta")}
+    log(f"  J0's N {n0} at K = {list(J0_KS)}: {_hold(torch, calls)} calls "
+        "bit-exact")
+    # check_masked_pseudo_ce held the Eq. 5 kernels at J0's (16, V)
+    c0 = J0_DATA["vocab_size"]
+    held |= {(kern, LM_B, c0) for kern in ("masked_pseudo_ce",
+                                           "masked_pseudo_ce_bwd")}
+    return shapes, held
+
+
 def lm_run(torch, port, ops, name, cfg, engine, dev, rounds, init=None,
            **extra):
     """One phase-5h run of the FL LM path: the launch counters set to 0
@@ -3000,8 +3199,11 @@ def lm_run(torch, port, ops, name, cfg, engine, dev, rounds, init=None,
           f"{name} ran {tr.engine}, {tr.adapter.kind}")
     check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()),
           f"{name}: metrics out of range: {m}")
-    check(0.0 < aco < (1.0 if "sparse_threshold" not in extra else 2.0),
-          f"{name}: ACO out of range: {aco}")
+    if extra.get("sparse_comm", True):
+        check(0.0 < aco < (1.0 if "sparse_threshold" not in extra else 2.0),
+              f"{name}: ACO out of range: {aco}")
+    else:
+        check(aco == 1.0, f"{name}: the disabled channel's ACO is {aco}")
     check(bool(torch.isfinite(tr._global_flat).all()),
           f"{name}: non-finite global parameters")
     res = {"s_per_round": (t2 - t1) / rounds, "setup_s": t1 - t0,
@@ -3628,6 +3830,246 @@ def _lm_chunked_runs(torch, port, ops, ref, comm_mod, held, twin):
     log(f"  launched (kernel, rows, width): {launched}")
     check(not missing, f"phase 5i launched {missing}, not held in phase 3")
     return {"layers": layers, "runs": runs, "fl_large_model": f2}
+
+
+# -- phase 5j: the FL language model on the other wires and options --------
+# J1-J3: phase 5h's setting (LM_DATA, LM_RUN: qwen2-1.5b at every published
+# width, bf16 compute, float32 parameters) at LM_LAYERS_CUT layers, run
+# there directly (5h's batched run at 4 layers passes LM_PEAK_CUT): J1
+# batched + dense_masked, J2 sequential + fp16 csr_q + EF over 2 epochs,
+# J3 batched on the disabled channel over 2 epochs
+J_RUNS = {
+    "J1": ("batched", dict(wire_format="dense_masked")),
+    "J2": ("sequential", dict(wire_format="csr_q", q_dtype="fp16",
+                              error_feedback=True, epochs=2)),
+    "J3": ("batched", dict(sparse_comm=False, epochs=2)),
+}
+# phase 5h's measured peaks at 2 layers (an H100 80GB HBM3 at 700 W;
+# PERF.md section 5), from which each J run's peak is reckoned before it
+L2_PEAK_CUT = 57.51e9         # L2, batched + csr
+L1_PEAK_CUT = 45.74e9         # L1, sequential + csr
+LM_CLIENTS = 10               # make_lm_dataset's M in phase 5h
+# J0: the jax-free twin of tests/test_torch_lm_trainer.py's LM_SMALL,
+# DATA and RUN (lm-small at V = 512, float32, 8 clients, 2 rounds) with
+# the absolute threshold 1e-6 that sends every nonzero element, each
+# option on both engines, the card against the CPU in this process, at
+# that test's bounds: schedules exact, metrics 1e-4, ACO 2e-3, parameters
+# atol 1e-4 / rtol 1e-3 but for at most J0_OUTSIDE of them, each within
+# two Adam steps. Unlike the CPU test (port against reference, an outlier
+# only over 2 epochs), card against CPU has one on every one-epoch option:
+# Adam + L1 walk an embedding entry across zero, where an ulp of its
+# gradient picks the step's sign, and card and CPU round the GEMMs apart
+# (1 of 213,632 outside, 1.21e-4 to 1.22e-4, in 5 or 6 of the 8 runs in
+# each of three runs of the phase; none over 2 epochs; an H100 80GB HBM3
+# at 700 W, PERF.md §5). The allowance is that measurement and one more, on every
+# option.
+J0_MODEL = dict(num_layers=1, d_model=128, d_ff=256, num_heads=2,
+                num_kv_heads=1, dtype="float32")
+J0_DATA = dict(vocab_size=512, seq_len=16, num_classes=8)
+J0_CLIENTS = 8
+J0_RUN = dict(rounds=2, batch_size=LM_B, lr=5e-4, seed=0,
+              sparse_threshold=1e-6)
+J0_OPTIONS = {
+    "dense_masked": dict(wire_format="dense_masked"),
+    "disabled": dict(sparse_comm=False),
+    "fp16 + EF": dict(wire_format="csr_q", q_dtype="fp16",
+                      error_feedback=True),
+    "epochs 2": dict(epochs=2),
+}
+J0_OUTSIDE = 2
+J0_KS = tuple(range(1, J0_CLIENTS + 1))    # rows phase 3 holds J0's N at
+
+
+def j0_config(port):
+    return port.get_config(LM_ARCH).reduced(**J0_MODEL)
+
+
+def j_reckoned(comm_mod, name, n):
+    """The peak device bytes of J run ``name`` at flat width ``n``,
+    reckoned from phase 5h's: J1 and J3 are L2 with its (6, cap) CSR
+    payload (a float32 value and an int32 index a slot) given up for the
+    (6, n) float32 stack they send (the masked deltas; the dense deltas);
+    J2 is L1 with the (M, n) resident EF residual. Epochs add nothing: a
+    client's Adam state lives through its epochs only."""
+    cap = comm_mod.SparseComm("p0.2").payload_capacity(n)
+    if name == "J2":
+        return L1_PEAK_CUT + LM_CLIENTS * n * 4
+    return L2_PEAK_CUT - 6 * cap * 8 + 6 * n * 4
+
+
+def j_expected(name, tr, steps):
+    """J run ``name``'s exact launches by (kernel, rows, width), and the
+    kernels it must launch whose shapes follow k-means (the sequential
+    engine's group sums: ``staleness_agg`` at any k <= K). Each round at K
+    participants: J1 one ``sparse_delta`` (K, N) upload and one (1, N)
+    chain advance, one (K, N) blend; J2 per participant a (1, N) upload
+    compaction and its fp16 quantization and a residual compaction, and
+    the chain advance's compaction and quantization; J3 one (K, N) blend.
+    The Eq. 5 kernels at (B, V) once a client step each way."""
+    n = tr._global_flat.numel()
+    want = {}
+
+    def add(key, c):
+        want[key] = want.get(key, 0) + c
+    for log_ in tr.logs:
+        k = len(log_.participants)
+        if name == "J1":
+            add(("sparse_delta", k, n), 1)
+            add(("sparse_delta", 1, n), 1)
+        if name in ("J1", "J3"):
+            add(("staleness_agg", k, n), 1)
+        if name == "J2":
+            add(("csr_compact", 1, n), 2 * k + 1)
+            add(("csr_quant", 1, n), k + 1)
+    for kern in ("masked_pseudo_ce", "masked_pseudo_ce_bwd"):
+        add((kern, LM_B, tr.adapter.num_classes), steps)
+    return want, ("staleness_agg",) if name == "J2" else ()
+
+
+def j_run(torch, port, ops, comm_mod, name):
+    """One J run on the card: the reckoned peak printed before it, the
+    measured one after, which must stay under ``LM_PEAK_CUT``; the
+    launches held to ``j_expected``."""
+    engine, extra = J_RUNS[name]
+    cfg = lm_config(port, LM_LAYERS_CUT)
+    n = lm_n(port, cfg)
+    reckoned = j_reckoned(comm_mod, name, n)
+    log(f"  {name} ({engine}, {extra}): peak reckoned {reckoned / 1e9:.2f} "
+        f"GB")
+    r = lm_run(torch, port, ops, name, cfg, engine, "cuda", LM_RUN["rounds"],
+               **extra)
+    peak = r.res["peak_device_bytes"]
+    r.res.update(reckoned_peak_bytes=reckoned, options=extra)
+    log(f"  {name}: peak measured {peak / 1e9:.2f} GB ({peak} B), reckoned "
+        f"{reckoned / 1e9:.2f} GB")
+    check(peak <= LM_PEAK_CUT, f"{name}: peak {peak} B past {LM_PEAK_CUT} B")
+    steps = extra.get("epochs", 1) * client_steps(r.tr)
+    want, loose = j_expected(name, r.tr, steps)
+    got = {tuple(k): c for *k, c in r.res["launches_by_shape"]}
+    exact = {k: c for k, c in got.items() if k[0] not in loose}
+    check(exact == want, f"{name}: launches by shape {sorted(got.items())}, "
+          f"expected {sorted(want.items())}")
+    lv = r.res["launches"]
+    for kern in loose:
+        check(lv[kern] > 0, f"{name}: {kern} never ran")
+    for kern in ("csr_compact", "csr_quant", "sparse_delta",
+                 "staleness_agg"):
+        if kern not in loose and not any(k[0] == kern for k in want):
+            check(lv[kern] == 0, f"{name}: {kern} launched off its path")
+    check(lv["flash_attention"] == 0, f"{name}: flash_attention launched")
+    return r.res
+
+
+def j0_init(torch, port):
+    """J0's initial LM, drawn on the CPU: the same on card and CPU."""
+    return port.tree_to_numpy(port.lm.init_params(
+        j0_config(port), torch.Generator().manual_seed(0)))
+
+
+def j0_run(torch, port, ops, engine, dev, extra):
+    """One J0 run from ``j0_init``: (trainer, train() result, launches by
+    shape)."""
+    ops.reset_launches()
+    tr = port.FedS3ATrainer(
+        port.make_lm_dataset(J0_CLIENTS, **J0_DATA),
+        port.FedS3AConfig(model=j0_config(port), engine=engine, device=dev,
+                          **J0_RUN, **extra),
+        init_params=j0_init(torch, port))
+    out = tr.train()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return tr, out, sorted([*k, c] for k, c in ops.LAUNCHES_BY_SHAPE.items())
+
+
+def j0_card_vs_cpu(torch, port, ops):
+    """J0: each of ``J0_OPTIONS`` on both engines on the card and on the
+    CPU from the same initial LM (drawn on the CPU), at
+    tests/test_torch_lm_trainer.py's bounds; every difference is printed
+    before any is held. Returns (results, launched (kernel, rows, width))."""
+    import numpy as np
+    res, launched, bad = {}, set(), []
+    for opt, extra in J0_OPTIONS.items():
+        for engine in ("sequential", "batched"):
+            what = f"J0 {opt}, {engine}"
+            t0 = time.perf_counter()
+            card, got, shapes = j0_run(torch, port, ops, engine, "cuda",
+                                       extra)
+            t1 = time.perf_counter()
+            cpu, want, _ = j0_run(torch, port, ops, engine, "cpu", extra)
+            t2 = time.perf_counter()
+            launched |= {tuple(s[:3]) for s in shapes}
+            lv = {}
+            for kern, _, _, c in shapes:
+                lv[kern] = lv.get(kern, 0) + c
+            a = port.flatten_tree(card.global_params).cpu().numpy()
+            b = port.flatten_tree(cpu.global_params).numpy()
+            check(a.shape == b.shape, f"{what}: card {a.shape} against "
+                  f"CPU {b.shape} parameters")
+            gap = np.abs(a - b)
+            # a NaN compares False: it counts outside
+            past = gap[~(gap <= 1e-4 + 1e-3 * np.abs(b))]
+            mdiff, adiff = _drift(got, want)
+            sched = all(
+                (x.participants, x.stalenesses, x.forced, x.time) ==
+                (y.participants, y.stalenesses, y.forced, y.time)
+                for x, y in zip(card.logs, cpu.logs, strict=True)) and \
+                list(card.base_versions) == list(cpu.base_versions)
+            steps = extra.get("epochs", 1) * client_steps(card)
+            res[what] = {"max_diff": float(gap.max()),
+                         "outside": int(past.size), "total": int(gap.size),
+                         "metric_diff": mdiff, "aco_diff": adiff,
+                         "aco": got["aco"], "schedules_equal": sched,
+                         "card_s": t1 - t0, "cpu_s": t2 - t1,
+                         "launches": lv, "client_steps": steps}
+            log(f"  {what}: card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; "
+                f"ACO {got['aco']:.6f} / {want['aco']:.6f}, max |metric "
+                f"diff| {mdiff:.3g}, max |diff| {gap.max():.3g} "
+                f"({past.size} of {gap.size} outside atol 1e-4 + rtol "
+                f"1e-3), schedules equal {sched}; launches {lv}")
+            lr2 = 2 * J0_RUN["lr"]
+            if not (sched and mdiff < 1e-4 and adiff < 2e-3
+                    and past.size <= J0_OUTSIDE and
+                    (past.size == 0 or past.max() <= lr2)
+                    and got["fleet"] == want["fleet"]):
+                bad.append(what)
+            uses = {"dense_masked": ("sparse_delta",),
+                    "fp16 + EF": ("csr_compact", "csr_quant"),
+                    "epochs 2": ("csr_compact",), "disabled": ()}[opt]
+            for kern in ("csr_compact", "csr_quant", "sparse_delta"):
+                if (lv.get(kern, 0) > 0) != (kern in uses):
+                    bad.append(f"{what}: {kern} launched {lv.get(kern, 0)}")
+            if not (lv.get("masked_pseudo_ce") == steps ==
+                    lv.get("masked_pseudo_ce_bwd")):
+                bad.append(f"{what}: Eq. 5 launches {lv}, {steps} steps")
+    check(not bad, f"J0 card vs CPU outside the bounds: {bad}")
+    return res, launched
+
+
+def lm_options(torch, port, ops, comm_mod, held):
+    """Phase 5j. J1-J3 (``J_RUNS``) on the card, J0 card vs CPU; every
+    (kernel, rows, width) launched must have been held in phase 3."""
+    runs = {}
+    for name in J_RUNS:
+        # what an earlier run left in a reference cycle would count in
+        # this run's peak: collect it, and print what is still held
+        gc.collect()
+        torch.cuda.empty_cache()
+        held_before = torch.cuda.memory_allocated()
+        log(f"  device memory held before {name}: {held_before} B")
+        t0 = time.perf_counter()
+        runs[name] = dict(j_run(torch, port, ops, comm_mod, name),
+                          held_before_bytes=held_before)
+        log(f"  {name} took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    j0, launched = j0_card_vs_cpu(torch, port, ops)
+    log(f"  J0 took {time.perf_counter() - t0:.1f} s")
+    launched |= {(kern, rows, width) for r in runs.values()
+                 for kern, rows, width, _ in r["launches_by_shape"]}
+    launched = sorted(launched)
+    missing = [x for x in launched if x not in held]
+    log(f"  launched (kernel, rows, width): {launched}")
+    check(not missing, f"phase 5j launched {missing}, not held in phase 3")
+    return {"layers": LM_LAYERS_CUT, "runs": runs, "j0": j0}
 
 
 # -- phase 6: serving qwen2-1.5b at full width -----------------------------
@@ -4277,6 +4719,17 @@ def main():
             shapes
     lmc_held |= {(kern, n, c) for n, c in MPCE_WIDE_SHAPES
                  for kern in ("masked_pseudo_ce", "masked_pseudo_ce_bwd")}
+    log("phase 3 (FL LM options): masked_pseudo_ce on bf16 logits; "
+        "sparse_delta and fp16 csr_quant at phase 5j's LM width, every "
+        "kernel J0 runs at its width")
+    check_masked_pseudo_ce_bf16(torch, ops, ref, dev, gen)
+    lmo_shapes, lmo_held = check_lm_option_widths(
+        torch, ops, ref, comm_mod, port, dev,
+        torch.Generator(device=dev).manual_seed(2), flushes)
+    for name, shapes in lmo_shapes.items():
+        next(k for k in kernels if k["name"] == name)["other_shapes"] += \
+            shapes
+    lmo_held |= lm_held
     del flushes
     s_serve = max(len(p) for p in serve_prompts(
         np, get_config(SERVE_ARCH).vocab_size))
@@ -4358,23 +4811,31 @@ def main():
                                      lm_held, lmc_held, l0c_twin)
     finally:
         stop_l0c_twin(l0c_twin)
-    for k in kernels:
-        for sh in k["other_shapes"]:
-            key = (k["name"], *sh["shape"])
-            if key in lm_held and "chunk" not in sh.get("case", ""):
-                sh["lm_launches"] = {
-                    name: sum(c for *kk, c in r.get("launches_by_shape", ())
-                              if tuple(kk) == key)
-                    for name, r in lm_res["runs"].items()}
+    log(f"phase 5j: the FL LM on the other wires and options ({LM_ARCH} at "
+        f"full width, {LM_LAYERS_CUT} layers: J1 batched + dense_masked, J2 "
+        "sequential + fp16 csr_q + EF over 2 epochs, J3 batched, disabled "
+        "channel, 2 epochs; J0 lm-small card vs CPU)")
+    t0 = time.perf_counter()
+    lmo_res = lm_options(torch, port, ops, comm_mod, lmo_held)
+    log(f"  phase 5j took {time.perf_counter() - t0:.1f} s")
+    def launches_by_run(runs, key):
+        return {name: sum(c for *kk, c in r.get("launches_by_shape", ())
+                          if tuple(kk) == key) for name, r in runs.items()}
 
     for k in kernels:
         for sh in k["other_shapes"]:
-            if "FL LM chunk" in sh.get("case", ""):
-                key = (k["name"], *sh["shape"])
-                sh["lm_chunked_launches"] = {
-                    name: sum(c for *kk, c in r.get("launches_by_shape", ())
-                              if tuple(kk) == key)
-                    for name, r in lmc_res["runs"].items()}
+            case = sh.get("case", "")
+            key = (k["name"], *sh["shape"])
+            if key in lm_held and "chunk" not in case:
+                sh["lm_launches"] = launches_by_run(lm_res["runs"], key)
+            if "phase 5j" in case:
+                # csr_quant counts its launches at (rows, n), not (rows, cap)
+                sh["lm_options_launches"] = launches_by_run(
+                    lmo_res["runs"],
+                    (k["name"], sh["shape"][0], sh.get("n", sh["shape"][1])))
+            if "FL LM chunk" in case:
+                sh["lm_chunked_launches"] = launches_by_run(lmc_res["runs"],
+                                                            key)
 
     log(f"phase 6: serving {SERVE_ARCH} at full width ({SERVE_REQUESTS} "
         f"requests, bucket {SERVE_BUCKET}, max_new {SERVE_NEW})")
@@ -4408,6 +4869,7 @@ def main():
                       "fleet": fleet_res, "faults": fault_res,
                       "dense_store": dense_res, "every_k_calls": every_k,
                       "lm_path": lm_res, "lm_chunked": lmc_res,
+                      "lm_options": lmo_res,
                       "lm_train": lm_train_res,
                       "gpu": smi}),
           flush=True)

@@ -87,6 +87,7 @@ import os
 import queue
 import threading
 import warnings
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -213,11 +214,6 @@ def _lm_later(what):
 LM_LATER = (
     ("base_store='dense'", lambda c: c.base_store == "dense"),
     ("client_store='paged'", lambda c: c.client_store == "paged"),
-    ("wire_format='dense_masked'", lambda c: c.wire_format == "dense_masked"),
-    ("sparse_comm=False", lambda c: not c.sparse_comm),
-    ("q_dtype='fp16'", lambda c: c.wire_format == "csr_q"
-     and c.q_dtype != "int8"),
-    ("epochs > 1", lambda c: c.epochs != 1),
 )
 
 
@@ -883,7 +879,10 @@ class FedS3ATrainer:
             else:
                 masked, nnz = trained - base_flat, None
             self.comm.account_batch(nnz, n, K)
-            uploaded = sent = base_flat + masked
+            # the uploaded models, in the masked stack's own memory (the
+            # sum is base + masked's bits): at a language model's width
+            # another (K, n) stack is 7.85 GB a 2-layer qwen2
+            uploaded = sent = masked.add_(base_flat)
         if layout == "csr":
             self.cstore.scatter_csr(part_ids, *res[0])
         elif layout == "dense":
@@ -1162,26 +1161,37 @@ class FedS3ATrainer:
 
     def _ckpt_submit(self, job):
         """Hand ``job`` to the writer thread (started at the first call);
-        its exception surfaces at the next ``_ckpt_drain``."""
+        its exception surfaces at the next ``_ckpt_drain``. The writer
+        holds the trainer weakly and drops each job (and the snapshot it
+        owns) once written; it ends when the trainer is freed."""
         if self._ckpt_thread is None:
             self._ckpt_queue = queue.Queue()
+            trainer = weakref.ref(self)
 
             def loop(q=self._ckpt_queue):
                 while True:
                     j = q.get()
+                    if j is None:           # the trainer was freed
+                        q.task_done()
+                        return
                     try:
                         j()
                     except BaseException as exc:
                         # kept for the training thread, which re-raises it
                         # at its next drain; the writer must outlive it, or
                         # the next save would wait on a queue nobody serves
-                        self._ckpt_exc = exc
+                        tr = trainer()
+                        if tr is not None:
+                            tr._ckpt_exc = exc
+                        del tr
                     finally:
+                        j = None
                         q.task_done()
 
             self._ckpt_thread = threading.Thread(
                 target=loop, name="fleet-ckpt-writer", daemon=True)
             self._ckpt_thread.start()
+            weakref.finalize(self, self._ckpt_queue.put, None)
         self._ckpt_queue.put(job)
 
     def _ckpt_sections(self, defer):

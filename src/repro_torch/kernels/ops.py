@@ -139,41 +139,58 @@ class _MaskedPseudoCE(torch.autograd.Function):
         return masked_pseudo_ce_grad(logits, mask, g_loss.contiguous()), None
 
 
+def _float32_logits(logits):
+    """Logits of any float dtype as float32 (the kernels' and the plain
+    versions' type; a no-op for float32), as the reference's kernel casts
+    its block (``repro/kernels/masked_pseudo_ce.py:24``). Differentiable:
+    autograd casts the gradient back to the input's dtype."""
+    if not isinstance(logits, torch.Tensor):
+        raise TypeError(f"logits must be a torch.Tensor, got {type(logits)}")
+    if not logits.is_floating_point():
+        raise TypeError(f"logits must be a float tensor, got {logits.dtype}")
+    return logits.to(torch.float32)
+
+
 def masked_pseudo_ce(logits, threshold):
-    """Eq. 5 (log-space mask): logits (N, C) f32 -> (loss (N,), mask (N,)).
-    Differentiable in ``logits``; the backward is
+    """Eq. 5 (log-space mask): logits (N, C) of any float dtype, cast to
+    float32 once -> (loss (N,), mask (N,)) float32. Differentiable in
+    ``logits``, the gradient in their dtype; the backward is
     ``masked_pseudo_ce_grad``. Above ``MPCE_BWD_MAX_C`` classes both
     directions launch the kernels that take a thread-block cluster a row
     (``wide_plan``), whose bits are the float64-summed plain versions';
     their launches count under the same names, at their own (rows, C) in
     ``LAUNCHES_BY_SHAPE``."""
-    return _MaskedPseudoCE.apply(logits.contiguous(), threshold)
+    return _MaskedPseudoCE.apply(_float32_logits(logits).contiguous(),
+                                 threshold)
 
 
 def masked_pseudo_ce_grad(logits, mask, g):
-    """Backward of Eq. 5 (``repro/kernels/ops.py:51-58``): logits (N, C),
-    mask (N,), g (N,) f32 -> ``(softmax - onehot(argmax)) * (mask * g)``
-    (N, C), ties to the first index. The kernel gives the bits that
+    """Backward of Eq. 5 (``repro/kernels/ops.py:51-58``): logits (N, C)
+    of any float dtype (the kernel reads their float32 cast), mask (N,),
+    g (N,) f32 -> ``(softmax - onehot(argmax)) * (mask * g)`` (N, C) in
+    the logits' dtype, ties to the first index (the argmax of the cast is
+    the input's: the cast is exact). The kernel gives the bits that
     ``ref.masked_pseudo_ce_grad`` gives on the card: up to 1024 classes
     torch.softmax's arithmetic, above it a cluster a row (``wide_plan``)
     summing in float64."""
-    _check("logits", logits, 2)
+    x = _float32_logits(logits).contiguous()
+    _check("logits", x, 2)
     _check("mask", mask, 1)
     _check("g", g, 1)
-    n, c = logits.shape
+    n, c = x.shape
     if mask.shape[0] != n or g.shape[0] != n:
-        raise ValueError(f"shapes disagree: logits {tuple(logits.shape)}, "
+        raise ValueError(f"shapes disagree: logits {tuple(x.shape)}, "
                          f"mask {tuple(mask.shape)}, g {tuple(g.shape)}")
-    if not _same_device(logits, mask, g):
+    if not _same_device(x, mask, g):
         return ref.masked_pseudo_ce_grad(logits, mask, g)
-    grad = torch.empty_like(logits)
+    grad = torch.empty_like(x)
     if n and c:
         _launch("masked_pseudo_ce_wide_bwd_launch" if c > MPCE_BWD_MAX_C
-                else "masked_pseudo_ce_bwd_launch", logits.data_ptr(),
+                else "masked_pseudo_ce_bwd_launch", x.data_ptr(),
                 mask.data_ptr(), g.data_ptr(), grad.data_ptr(), n, c,
-                _stream(logits))
+                _stream(x))
         _counted("masked_pseudo_ce_bwd", n, c)
-    return grad
+    return grad.to(logits.dtype)
 
 
 _csr_state = {}   # (device, stream) -> [flag words + counter, drawn, epoch]

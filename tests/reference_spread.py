@@ -10,7 +10,13 @@ and ``chip_smoke.py`` phase 5f.
         [--rounds R] [--no-faults] [--chunk | --chunk-full] [--full] \\
         [--per-round] [--shares] [--port batched,sequential] [--messages]
 
-Cells: ``chaos`` is tests/test_chaos.py's acceptance run (50 rounds,
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/reference_spread.py \\
+        --cell lm [--wire ...] [--ef] [--q-dtype fp16] [--epochs E] \\
+        [--disabled] [--threshold 1e-6] [--port batched,sequential]
+
+Cells: ``lm`` is tests/test_torch_lm_trainer.py's setting (the reduced
+qwen2 at ``lm-small``, V = 512, float32, 8 clients, 2 rounds, no faults;
+the reference's initial LM); ``chaos`` is tests/test_chaos.py's acceptance run (50 rounds,
 scale 0.0015, ``REFERENCE_CHURN``, EF, quorum floor 1); ``test`` the fault
 tests' setting (8 rounds, scale 0.0015, 5% corrupt uploads, deadline 700
 s, quorum floor 2); ``5f`` phase 5f's faults on phase 5's data (7 rounds,
@@ -112,7 +118,7 @@ def _diff(a, b):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cell", choices=("chaos", "test", "5f", "5"),
+    ap.add_argument("--cell", choices=("chaos", "test", "5f", "5", "lm"),
                     default="test")
     ap.add_argument("--wire", default="csr")
     ap.add_argument("--ef", action="store_true")
@@ -129,8 +135,16 @@ def main():
     ap.add_argument("--port", default="",
                     help="port engines to hold against the reference")
     ap.add_argument("--messages", action="store_true")
+    ap.add_argument("--q-dtype", default="int8", help="lm: csr_q values")
+    ap.add_argument("--epochs", type=int, default=1, help="lm: epochs")
+    ap.add_argument("--disabled", action="store_true",
+                    help="lm: sparse_comm=False")
+    ap.add_argument("--threshold", default="p0.2",
+                    help="lm: the sparse threshold ('p0.2' or a float)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
+    if args.cell == "lm":
+        return _lm_spread(args)
     import jax
     from repro.configs.feds3a_cnn import CNNConfig as JCNN
     from repro.core import FedS3AConfig as JConfig
@@ -208,6 +222,72 @@ def main():
     if args.messages:
         _messages(cell, seed, kw, traffic, p_traffic, init, JTrainer, JConfig, JCNN, j_make_dataset, FedS3ATrainer,
                   FedS3AConfig, CNNConfig, make_dataset)
+
+
+def _lm_spread(args):
+    """The ``lm`` cell: the reference's batched engine against its own
+    sequential one, then each ``--port`` engine against the reference's
+    sequential run, from the reference's initial LM: metrics, ACO and the
+    largest parameter difference. Model, data and run are the test's own
+    constants."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import jax
+    from test_torch_lm_trainer import DATA as LM_DATA
+    from test_torch_lm_trainer import LM_SMALL
+    from test_torch_lm_trainer import RUN as LM_RUN
+    from repro.configs import get_config as jget_config
+    from repro.configs import load_all as jload_all
+    from repro.core import FedS3AConfig as JConfig
+    from repro.core import FedS3ATrainer as JTrainer
+    from repro.data.synthetic_lm import make_lm_dataset as j_make_lm
+    from repro.models import lm as jlm
+    from repro_torch.configs import get_config, load_all
+    from repro_torch.core.feds3a import FedS3AConfig, FedS3ATrainer
+    from repro_torch.data import make_lm_dataset
+    from repro_torch.tree import leaves
+    from repro_torch.weights import params_to_numpy
+    jload_all()
+    load_all()
+    thr = args.threshold if args.threshold.startswith("p") else \
+        float(args.threshold)
+    kw = dict(LM_RUN, wire_format=args.wire, error_feedback=args.ef,
+              q_dtype=args.q_dtype, epochs=args.epochs,
+              sparse_comm=not args.disabled, sparse_threshold=thr)
+    jcfg = jget_config("qwen2-1.5b").reduced(**LM_SMALL)
+    runs = {}
+    for engine in ("sequential", "batched"):
+        tr = JTrainer(j_make_lm(8, **LM_DATA),
+                      JConfig(model=jcfg, engine=engine, use_kernels=False,
+                              **kw))
+        runs[engine] = (tr, tr.train())
+    ref, want = runs["sequential"]
+    ref_leaves = [np.asarray(x) for x in jax.tree.leaves(ref.global_params)]
+
+    def params_diff(got_leaves):
+        return max(float(np.max(np.abs(a - b)))
+                   for a, b in zip(got_leaves, ref_leaves))
+
+    m, a = _diff(runs["batched"][1], want)
+    p = params_diff([np.asarray(x) for x in
+                     jax.tree.leaves(runs["batched"][0].global_params)])
+    print(f"lm {args.wire} q_dtype={args.q_dtype} ef={args.ef} epochs="
+          f"{args.epochs} disabled={args.disabled} threshold={thr}: "
+          f"reference batched - sequential: max |metric| {m:.3g}, ACO "
+          f"{a:.3g}, parameters {p:.3g} (sequential ACO {want['aco']:.6f})")
+    _, k = jax.random.split(jax.random.PRNGKey(0))
+    init = jax.tree.map(np.asarray, jlm.init_params(jcfg, k))
+    cfg = get_config("qwen2-1.5b").reduced(**LM_SMALL)
+    for engine in filter(None, args.port.split(",")):
+        tr = FedS3ATrainer(make_lm_dataset(8, **LM_DATA),
+                           FedS3AConfig(model=cfg, device="cpu",
+                                        engine=engine, **kw),
+                           init_params=init)
+        got = tr.train()
+        m, a = _diff(got, want)
+        p = params_diff(leaves(params_to_numpy(tr.global_params)))
+        print(f"  port {engine} - reference sequential: max |metric| "
+              f"{m:.3g}, ACO {a:.3g}, parameters {p:.3g} (port ACO "
+              f"{got['aco']:.6f})")
 
 
 def _messages(cell, seed, kw, traffic, p_traffic, init, JTrainer, JConfig, JCNN, j_make_dataset, FedS3ATrainer,

@@ -11,6 +11,7 @@ snapshot before the next round writes the state in place; a writer's
 error surfaces at the next save; and a training subprocess killed with
 SIGKILL resumes bit for bit."""
 import dataclasses
+import gc
 import os
 import signal
 import subprocess
@@ -18,6 +19,7 @@ import sys
 import textwrap
 import threading
 import time
+import weakref
 from pathlib import Path
 
 import jax
@@ -311,6 +313,27 @@ def test_background_save_owns_its_snapshot(cell, tmp_path):
         sys.setswitchinterval(interval)
     assert tr._ckpt_queue.unfinished_tasks == 0
     _assert_same(_sections(path), want)
+
+
+def test_the_writer_lets_go_of_its_snapshot_and_its_trainer(tmp_path):
+    """A background save's job, with the device copies it owns, is dropped
+    once written; a trainer that saved in the background is freed when the
+    caller lets go of it, and its writer thread then ends."""
+    tr = _trainer("batched-resident-ef", tmp_path)
+    tr.train(1)
+    jobs, submit = [], tr._ckpt_submit
+    tr._ckpt_submit = lambda job: (jobs.append(weakref.ref(job)),
+                                   submit(job))
+    tr.save_checkpoint(wait=False)
+    tr._ckpt_drain()
+    gc.collect()
+    assert len(jobs) == 1 and jobs[0]() is None
+    writer, trainer = tr._ckpt_thread, weakref.ref(tr)
+    del tr, submit
+    gc.collect()
+    assert trainer() is None
+    writer.join(30)
+    assert not writer.is_alive()
 
 
 def test_writer_error_surfaces_at_the_next_save(tmp_path, monkeypatch):

@@ -148,7 +148,16 @@ def test_backward_wrapper_checks_and_cpu_route():
     with pytest.raises(ValueError):
         ops.masked_pseudo_ce_grad(x, torch.ones(3), torch.ones(4))
     with pytest.raises(TypeError):
-        ops.masked_pseudo_ce_grad(x.double(), torch.ones(4), torch.ones(4))
+        ops.masked_pseudo_ce_grad(x.int(), torch.ones(4), torch.ones(4))
+    with pytest.raises(TypeError):
+        ops.masked_pseudo_ce_grad(x, torch.ones(4).double(), torch.ones(4))
+    # logits of another float dtype: read as their float32 cast, the
+    # gradient returned in their dtype, as the reference's kernel does
+    xd = torch.randn((4, 9), dtype=torch.float64)
+    gd = ops.masked_pseudo_ce_grad(xd, torch.ones(4), torch.ones(4))
+    assert gd.dtype == torch.float64
+    assert torch.equal(gd, ops.masked_pseudo_ce_grad(
+        xd.float(), torch.ones(4), torch.ones(4)).double())
     # wider than the narrow kernels: the CPU runs the plain version
     wide = torch.randn((4, ops.MPCE_BWD_MAX_C + 1))
     np.testing.assert_array_equal(

@@ -13,6 +13,10 @@ splits the 65,536-element embedding in two: 6 chunks (60,000, 5,536,
 split leaf: the embedding is the only leaf above 32,768, and splitting it
 leaves the attention group and the three MLP matrices a chunk each.
 
+Wires: csr, csr + EF, int8 and fp16 csr_q + EF, and csr over 2 epochs
+(dense_masked and the disabled channel refuse chunking, as the
+reference's do).
+
 Bounds. With an absolute threshold (every nonzero element sent): the
 reference's cross-engine bounds (tests/test_engine_parity.py:125, :136):
 schedules and base versions exact; parameters atol 1e-4 / rtol 1e-3;
@@ -54,7 +58,9 @@ RUN = dict(rounds=2, batch_size=16, lr=5e-4, seed=0, init_server_epochs=1,
 EXACT_KEEP = 1e-6       # an absolute threshold below every update
 EF = dict(error_feedback=True)
 CSRQ_EF = dict(wire_format="csr_q", error_feedback=True)
-WIRES = {"csr": {}, "csr-ef": EF, "csrq-ef": CSRQ_EF}
+WIRES = {"csr": {}, "csr-ef": EF, "csrq-ef": CSRQ_EF,
+         "fp16-ef": dict(CSRQ_EF, q_dtype="fp16"),
+         "csr-epochs-2": dict(epochs=2)}
 # per-layer keep fractions on LM leaf names: the MLP matrices at 0.3 with
 # their own residual share (the trainer case, the rest at EXACT_KEEP); the
 # embedding's two pieces at 0.1 too (layouts)

@@ -1,10 +1,11 @@
 """Fleet checkpoints on the FL language-model path, on the CPU: a faulted
 run saved mid-way (``save_checkpoint(wait=True)`` and ``wait=False``),
 restored onto a fresh trainer built from the same config and finished,
-equals the uninterrupted run bit for bit. Three trainers: the flat
+equals the uninterrupted run bit for bit. Five trainers: the flat
 sequential engine, whose server Adam state is the LM's nested tree
-(dicts and lists), the flat batched engine and the chunked batched engine
-with EF pages.
+(dicts and lists), the flat batched engine, the chunked batched engine
+with EF pages, the flat sequential engine on dense_masked + EF (dense EF
+rows) and the flat batched engine on fp16 csr_q + EF over 2 epochs.
 
 Model, data and faults as tests/test_torch_lm_faults.py (``lm-small`` at
 V = 512, float32, ``make_lm_dataset(8, ...)``, ``REFERENCE_CHURN`` with
@@ -32,7 +33,11 @@ RUN = dict(rounds=ROUNDS, batch_size=16, lr=5e-4, seed=SEED, tau=2,
            round_deadline=700.0, quorum_floor=2,
            traffic=dataclasses.replace(REFERENCE_CHURN, corrupt_prob=0.10))
 CELLS = {"flat-csr": {},
-         "chunked-csr-ef": dict(chunk_size=60_000, error_feedback=True)}
+         "chunked-csr-ef": dict(chunk_size=60_000, error_feedback=True),
+         "flat-dense-masked-ef": dict(wire_format="dense_masked",
+                                      error_feedback=True),
+         "flat-fp16-ef-epochs-2": dict(wire_format="csr_q", q_dtype="fp16",
+                                       error_feedback=True, epochs=2)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -82,8 +87,8 @@ def _same_end(a, out_a, b, out_b):
     np.testing.assert_array_equal(a.base_versions, b.base_versions)
     np.testing.assert_array_equal(a.store.detached, b.store.detached)
     if a.cstore is not None:
-        for x, y in zip(a.cstore.gather_csr(list(range(a.M))),
-                        b.cstore.gather_csr(list(range(b.M))), strict=True):
+        # the EF residuals: CSR pages (chunked) or dense rows (flat)
+        for x, y in zip(a.cstore._arrays, b.cstore._arrays, strict=True):
             assert torch.equal(x, y)
     assert trace(a) == trace(b)
     assert out_a == out_b
@@ -96,7 +101,8 @@ def _same_end(a, out_a, b, out_b):
 @pytest.mark.parametrize("wait", [True, False], ids=["wait", "background"])
 @pytest.mark.parametrize("cell, engine", [
     ("flat-csr", "sequential"), ("flat-csr", "batched"),
-    ("chunked-csr-ef", "batched")])
+    ("chunked-csr-ef", "batched"), ("flat-dense-masked-ef", "sequential"),
+    ("flat-fp16-ef-epochs-2", "batched")])
 def test_lm_resume_is_bit_exact(cell, engine, wait, tmp_path):
     """Train 3 faulted rounds and save; restore onto a fresh trainer and
     train 3 more: the end state is the uninterrupted run's bit for bit

@@ -15,8 +15,11 @@ Bounds. Against the reference's sequential engine (``use_kernels=False``):
 the fault trace (participants, stalenesses, forced, lost, quarantined,
 departed, rejoined, resynced, quorum, target K, degraded, deadline hits,
 crashes, times), versions, detached mask, fleet dict and messages exact;
-parameters atol 1e-4 / rtol 1e-3, metrics 1e-4, ACO 2e-3 (the reference's
-cross-engine bounds, tests/test_engine_parity.py:125, :136)."""
+parameters atol 1e-4 / rtol 1e-3 (over 2 epochs with ``EPOCHS_OUTSIDE``
+exceptions), metrics 1e-4, ACO 2e-3 (the reference's cross-engine bounds,
+tests/test_engine_parity.py:125, :136). Cells: flat csr, chunked csr +
+EF, flat dense_masked over 2 epochs, the flat disabled channel and
+chunked fp16 csr_q + EF over 2 epochs."""
 import dataclasses
 import os
 import re
@@ -58,7 +61,23 @@ CHURN = dataclasses.replace(REFERENCE_CHURN, corrupt_prob=0.10)
 J_CHURN_C = dataclasses.replace(J_CHURN, corrupt_prob=0.10)
 CHUNK = 60_000
 CELLS = {"flat-csr": {},
-         "chunked-csr-ef": dict(chunk_size=CHUNK, error_feedback=True)}
+         "chunked-csr-ef": dict(chunk_size=CHUNK, error_feedback=True),
+         "flat-dense-masked-epochs-2": dict(wire_format="dense_masked",
+                                            epochs=2),
+         "flat-disabled": dict(sparse_comm=False),
+         "chunked-fp16-ef-epochs-2": dict(chunk_size=CHUNK,
+                                          wire_format="csr_q",
+                                          q_dtype="fp16",
+                                          error_feedback=True, epochs=2)}
+# Over 2 epochs a few parameters pass atol 1e-4 / rtol 1e-3, each within
+# two Adam steps (2 lr): Adam + L1 walk entries across zero, where an ulp of
+# the gradient picks a step's sign (tests/test_torch_lm_trainer.py's
+# EPOCHS_OUTSIDE), and 6 faulted rounds give more such entries. Measured
+# (one intra-op thread; on either engine): 3 of 213,248 outside
+# (dense_masked, max 2.14e-4) and 17 (chunked fp16 + EF, max 2.32e-4); the
+# port against itself with lr moved 2 ulps: 2 and 73 outside, max 1.66e-4
+# and 2.40e-4. Metrics equal, ACO within 1e-6
+EPOCHS_OUTSIDE = 20
 FLEET = ("crashes", "lost_uploads", "quarantined", "departures", "rejoins",
          "resyncs", "degraded_rounds")
 
@@ -142,9 +161,21 @@ def test_faulted_lm_matches_reference(cell, engine):
     assert port.comm.dense_bytes == ref.comm.dense_bytes
     jp = jax.tree_util.tree_flatten_with_path(ref.global_params)[0]
     tp = leaves_with_path(params_to_numpy(port.global_params))
-    for (_, jv), (path, v) in zip(jp, tp, strict=True):
-        np.testing.assert_allclose(v, np.asarray(jv), atol=1e-4, rtol=1e-3,
-                                   err_msg=path_name(path))
+    if "epochs" not in CELLS[cell]:
+        for (_, jv), (path, v) in zip(jp, tp, strict=True):
+            np.testing.assert_allclose(v, np.asarray(jv), atol=1e-4,
+                                       rtol=1e-3, err_msg=path_name(path))
+    else:
+        past = []
+        for (_, jv), (path, v) in zip(jp, tp, strict=True):
+            jv = np.asarray(jv)
+            assert v.shape == jv.shape, path_name(path)
+            gap = np.abs(v - jv)
+            # a NaN compares False: counted outside
+            past += [(path_name(path), float(d))
+                     for d in gap[~(gap <= 1e-4 + 1e-3 * np.abs(jv))]]
+        assert len(past) <= EPOCHS_OUTSIDE and \
+            all(d <= 2 * RUN["lr"] for _, d in past), past[:8]
     for m in want["metrics"]:
         assert abs(got["metrics"][m] - want["metrics"][m]) < 1e-4, m
     assert abs(got["aco"] - want["aco"]) < 2e-3

@@ -348,6 +348,41 @@ def test_narrow_plain_version_unchanged(c):
     assert torch.equal(ref.masked_pseudo_ce_grad(x, mask, g), want)
 
 
+@pytest.mark.parametrize("c", [9, 1025])
+def test_bf16_logits_against_the_reference(c):
+    """bf16 logits: ``ops.masked_pseudo_ce`` casts them to float32 once,
+    as the reference's kernel does, and returns the gradient in bf16, as
+    its custom VJP does. Loss and mask against the Pallas kernel in
+    interpret mode on the same bf16 input; the gradient, through autograd
+    and through ``masked_pseudo_ce_grad``, against the reference's VJP
+    within the float32 bound above and one bf16 rounding of it."""
+    xb = torch.as_tensor(_planted(c, seed=3)).to(torch.bfloat16)
+    jx = jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16)
+    g = np.linspace(0.5, 1.5, xb.shape[0]).astype(np.float32)
+    xt = xb.clone().requires_grad_(True)
+    loss, mask = ops.masked_pseudo_ce(xt, 0.95)
+    (grad,) = torch.autograd.grad(torch.sum(loss * torch.as_tensor(g)), xt)
+    jl, jm = jops.masked_pseudo_ce(jx, 0.95)
+    jgrad = jax.grad(lambda z: jnp.sum(jops.masked_pseudo_ce(z, 0.95)[0]
+                                       * g))(jx)
+    assert loss.dtype == mask.dtype == torch.float32
+    assert grad.dtype == torch.bfloat16 and jgrad.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jm))
+    assert 0 < int(mask.sum()) < xb.shape[0]
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(jl),
+                               atol=WIDE_LOSS, rtol=0)
+    want = np.asarray(jgrad.astype(jnp.float32))
+    got = grad.float().numpy()
+    ulp = np.spacing(np.abs(want).astype(np.float32)) * 2.0 ** 16
+    assert np.all(np.abs(got - want) <= WIDE_GRAD + ulp)
+    alone = ops.masked_pseudo_ce_grad(xb, mask, torch.as_tensor(g))
+    assert alone.dtype == torch.bfloat16 and torch.equal(alone, grad)
+    # the plain versions on the float32 cast, the same bits
+    assert torch.equal(loss, ref.masked_pseudo_ce_ref(xb.float(), 0.95)[0])
+    assert torch.equal(grad, ref.masked_pseudo_ce_grad(
+        xb.float(), mask, torch.as_tensor(g)).to(torch.bfloat16))
+
+
 def test_lm_configs_agree():
     jcfg, cfg = _cfgs()
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)

@@ -7,6 +7,7 @@ stays the proof.
     python3 tools/smoke_phase.py lmc [--out FILE.json]
     python3 tools/smoke_phase.py train [--out FILE.json]
     python3 tools/smoke_phase.py wide [--out FILE.json]
+    python3 tools/smoke_phase.py lmo [--out FILE.json]
 
 ``lm``: the FL language-model checks: phase 3's vocabulary-wide
 ``masked_pseudo_ce`` kernels and the compaction kernels at the LM's flat
@@ -18,6 +19,12 @@ and resumed, F2 the ``fl_large_model`` launcher).
 ``wide``: phase 3's vocabulary-wide ``masked_pseudo_ce`` kernels alone
 (bit for bit at every shape, timed at the FL LM's), with nvcc's register
 and spill report for their source.
+``lmo``: the FL language model on the other wires and options: phase 3's
+``masked_pseudo_ce`` kernels (narrow, J0's (16, 512) among them, and
+vocabulary-wide), the compaction kernels at the LM's flat widths, the
+bf16-logits case and phase 5j's widths
+(``sparse_delta``, fp16 ``csr_quant``, J0's), then phase 5j (J1-J3 at 2
+layers with their reckoned and measured peaks, J0 card against CPU).
 ``train``: phase 6b, LM training (T0 flash against ref and microbatches,
 T0c card against CPU, T1 qwen2-1.5b at full width and depth, F1 the
 ``launch/train.py`` CLI), after phase 5's batched + csr path, whose run
@@ -85,6 +92,34 @@ def run_lmc(torch, cs, port):
             "lm_chunk_widths": shapes, "lm_chunked": res}
 
 
+def run_lmo(torch, cs, port):
+    from repro_torch.core import sparse_comm as comm_mod
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flushes = cs.l2_flushes(torch, dev)
+    t0 = time.perf_counter()
+    fwd, bwd = cs.check_masked_pseudo_ce_wide(torch, ops, ref, dev, gen,
+                                              flushes)
+    shapes, held = cs.check_lm_width_compaction(torch, ops, ref, comm_mod,
+                                                port, dev, gen, flushes)
+    held |= {(k, n, c) for n, c in cs.MPCE_WIDE_SHAPES
+             for k in ("masked_pseudo_ce", "masked_pseudo_ce_bwd")}
+    cs.check_masked_pseudo_ce(torch, ops, ref, dev, gen)
+    cs.check_masked_pseudo_ce_bf16(torch, ops, ref, dev, gen)
+    lmo_shapes, lmo_held = cs.check_lm_option_widths(
+        torch, ops, ref, comm_mod, port, dev,
+        torch.Generator(device=dev).manual_seed(2), flushes)
+    del flushes
+    torch.cuda.empty_cache()
+    cs.log(f"phase 3 (FL LM options) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res = cs.lm_options(torch, port, ops, comm_mod, held | lmo_held)
+    cs.log(f"phase 5j took {time.perf_counter() - t0:.1f} s")
+    return {"wide_forward": fwd, "wide_backward": bwd, "lm_widths": shapes,
+            "lm_option_widths": lmo_shapes, "lm_options": res}
+
+
 def run_wide(torch, cs):
     from repro_torch.kernels import build, ops, ref
     for line in build.build_log.get("masked_pseudo_ce", "").splitlines():
@@ -106,7 +141,7 @@ def run_train(torch, cs, port, smi):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("phase", choices=("lm", "lmc", "train", "wide"))
+    ap.add_argument("phase", choices=("lm", "lmc", "lmo", "train", "wide"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -129,6 +164,8 @@ def main():
         res = run_lm(torch, cs, port)
     elif args.phase == "lmc":
         res = run_lmc(torch, cs, port)
+    elif args.phase == "lmo":
+        res = run_lmo(torch, cs, port)
     elif args.phase == "wide":
         res = run_wide(torch, cs)
     else:
